@@ -5,10 +5,13 @@
 
 Phases (any failure raises and the script exits non-zero):
   1. device: name, count, power limit; TF32 off;
-  2. build: compiles the fused ENN kernel from the repo's CUDA source;
+  2. build: compiles the fused ENN kernel from the repo's CUDA source and
+     prints ptxas's register and spill report of each kernel;
   3. kernel against its plain version at every launch shape of the GGNN
      generate job (preset("GGNN"), B=1000, N=13), in f32 and bf16, plus a
-     ragged row count and the ChEMBL-width message stack (N=40, E=4);
+     ragged row count and the ChEMBL-width message stack (N=40, E=4); in
+     bf16 through the wrapper (its own launch plan) and under both kinds
+     of plan forced (no cluster, the largest cluster);
   4. GGNN forward at B=1000, bf16 and f32: kernel path against the plain
      PyTorch path, and exactly 10 kernel launches per forward; the bf16
      forward's time on both paths;
@@ -17,8 +20,9 @@ Phases (any failure raises and the script exits non-zero):
      batch_size=1000): files written, every round's forward through the
      kernel; then the sampler alone: time per round, and the device's busy
      share over one batch from torch.profiler;
-  6. CUDA-event timings of the kernel, its plain version and the unfused
-     PyTorch path at each launch shape, against the card's bound.
+  6. CUDA-event timings of the kernel (under its launch plan, and under
+     the other kind of plan), its plain version and the unfused PyTorch
+     path at each launch shape, against the card's bound.
 
 The second-to-last line is {"kernels": [...]}, the last line
 {"ok": true, "device": {...}}.  The job runs in a temporary directory,
@@ -86,13 +90,34 @@ def phase_device() -> dict:
     return {"platform": "gpu", "kind": name, "count": count}
 
 
+def ptxas_report(build_log: str) -> list:
+    """(kernel, registers line, spill line) per entry function."""
+    rows, name, spill = [], None, ""
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            name = next((k for k in ("wgmma_kernelILi64", "wgmma_kernelILi128",
+                                     "f32_kernel") if k in mangled), mangled)
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line and name:
+            rows.append((name, line.split(":", 1)[1].strip(), spill))
+    return rows
+
+
 def phase_build(fused_enn) -> None:
     t0 = time.time()
     path = fused_enn.build_library()
-    regs = [l.strip() for l in fused_enn.BUILD_LOG.splitlines()
-            if "registers" in l]
-    log(f"[2 build] {os.path.relpath(path, ROOT)} in {time.time() - t0:.2f} s"
-        + "".join(f"\n    {r}" for r in regs))
+    log(f"[2 build] {os.path.relpath(path, ROOT)} in {time.time() - t0:.2f} s")
+    report = ptxas_report(fused_enn.BUILD_LOG)
+    for name, regs, spill in report:
+        log(f"    {name:<20} {regs}; {spill}")
+    if not report:
+        log("    ptxas report: not printed (library already built)")
+        return
+    log("    ptxas warpgroup.arrive injections: "
+        f"{fused_enn.BUILD_LOG.count('C7519')}, wgmma serialized: "
+        f"{fused_enn.BUILD_LOG.count('are serialized')}")
 
 
 def main_path_sites(model):
@@ -150,6 +175,19 @@ def kernel_check(fused_enn, name, wrapper, mlps, x2d, lead) -> float:
         f"max|kernel-plain| {err:.3g} (tol {TOL[dt]:.3g} abs + rel) "
         f"{'ok' if ok else 'FAIL'}")
     check(ok, f"{name} {dt}: kernel disagrees with its plain version")
+    if dt == torch.bfloat16:
+        for plan in fused_enn.plan_choices(flat.dims):
+            with torch.inference_mode():
+                got = fused_enn.fused_enn_cuda(flat, x2d, plan)
+            torch.cuda.synchronize()
+            e = (got.float() - ref.float()).abs().max().item()
+            ok = torch.allclose(got.float(), ref.float(), atol=TOL[dt],
+                                rtol=TOL[dt])
+            log(f"      plan tile_rows={plan.tile_rows} cluster={plan.cluster}"
+                f": max|kernel-plain| {e:.3g} {'ok' if ok else 'FAIL'}")
+            check(ok, f"{name} under {plan}: kernel disagrees with its plain "
+                  "version")
+            err = max(err, e)
     return err
 
 
@@ -346,23 +384,33 @@ def phase_timings(fused_enn, model, errs, launches) -> list:
         flat = fused_enn.flatten_weights(fused_enn.stacked_layers(mlps), dt,
                                          x.device)
         layers = unfused_layers(mlps, dt)
+        plan = fused_enn.launch_plan(R, flat.E, flat.dims)
+        other = [p for p in fused_enn.plan_choices(flat.dims) if p != plan][0]
         with torch.inference_mode():
             ms = cuda_ms(lambda: fused_enn.fused_enn_cuda(flat, x))
+            other_ms = cuda_ms(lambda: fused_enn.fused_enn_cuda(flat, x, other))
             plain_ms = cuda_ms(
                 lambda: fused_enn.fused_stacked_mlp_reference(flat, x))
             library_ms = cuda_ms(lambda: unfused_forward(layers, x))
         bound_ms, bound_by = bound(flat, R, dt)
         check(launches.get(flat.layout, 0) > 0,
               f"{name}: the kernel never ran there on the main path")
-        log(f"    {name:<22} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-            f"unfused {library_ms:.4f} ms  bound {bound_ms:.4f} ms "
-            f"({bound_by})")
+        log(f"    {name:<22} kernel {ms:.4f} ms (tile {plan.tile_rows}, "
+            f"cluster {plan.cluster}; {other_ms:.4f} ms at tile "
+            f"{other.tile_rows}, cluster {other.cluster})  plain "
+            f"{plain_ms:.4f} ms  unfused {library_ms:.4f} ms  bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
         rows.append({
             "name": f"{wrapper}[{name}]", "route": "cuda", "source": SOURCE,
             "replaces": REPLACES, "launches": launches.get(flat.layout, 0),
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms})
+            "library_ms": library_ms,
+            "plan": {"tile_rows": plan.tile_rows, "cluster": plan.cluster},
+            "bound_share": bound_ms / ms, "vs_library": ms / library_ms})
+    per_forward = sum(r["ms"] * (3 if "msg_nns" in r["name"] else 1)
+                      for r in rows)
+    log(f"    sum of one forward's 10 launches: {per_forward:.4f} ms")
     return rows
 
 

@@ -21,8 +21,8 @@ from graphinvent_tpu_torch.models.core import MLP
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1.0 / 64}
 
 # (name, E, rows, I, hidden, O): the GGNN generate job's launch shapes at
-# preset("GGNN"), B=1000, N=13, plus a ragged row count and the ChEMBL-width
-# message stack (N=40, four bond types)
+# preset("GGNN"), B=1000, N=13, plus a ragged row count, the ChEMBL-width
+# message stack (N=40, four bond types) and a row count below one tile
 SHAPES = [
     ("msg_nns", 3, 13000, 100, [250] * 4, 100),
     ("att_nn", 1, 13000, 108, [250] * 4, 100),
@@ -34,7 +34,22 @@ SHAPES = [
     ("f_term_2", 1, 1000, 100, [500] * 4, 1),
     ("msg_ragged", 3, 12345, 100, [250] * 4, 100),
     ("msg_chembl", 4, 40000, 100, [250] * 4, 100),
+    ("f_add_1_r37", 1, 37, 100, [500] * 4, 45),
 ]
+
+
+def _plans(shape):
+    """bf16 runs every shape under both kinds of plan (no cluster, the
+    plan's largest cluster); f32 has one kernel and no plan."""
+    dims = (shape[3], *shape[4], shape[5])
+    plans = fused_enn.plan_choices(dims)
+    if shape[0] == "f_add_2":           # the largest cluster the kernel takes
+        plans.append(fused_enn.LaunchPlan(64, 8))
+    return plans
+
+
+CASES = [(s, torch.float32, None) for s in SHAPES] + [
+    (s, torch.bfloat16, p) for s in SHAPES for p in _plans(s)]
 
 
 @pytest.fixture
@@ -52,23 +67,28 @@ def _towers(E, I, hidden, O, seed):
                                for _ in range(E))
 
 
+def _case_id(case):
+    shape, dtype, plan = case
+    if plan is None:
+        return f"{shape[0]}-f32"
+    return f"{shape[0]}-bf16-tm{plan.tile_rows}-c{plan.cluster}"
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape", SHAPES, ids=[s[0] for s in SHAPES])
-def test_kernel_matches_plain(cuda, shape, dtype):
-    name, E, R, I, hidden, O = shape
+@pytest.mark.parametrize("case", CASES, ids=[_case_id(c) for c in CASES])
+def test_kernel_matches_plain(cuda, case):
+    (name, E, R, I, hidden, O), dtype, plan = case
     towers = _towers(E, I, hidden, O, seed=len(name)).to(cuda)
     x = torch.from_numpy(np.random.default_rng(0).normal(
         size=(R, I)).astype(np.float32) * 0.5).to(cuda, dtype)
     flat = fused_enn.flatten_weights(
         fused_enn.stacked_layers(list(towers)), dtype, cuda)
-    got = fused_enn.fused_enn_cuda(flat, x)
+    got = fused_enn.fused_enn_cuda(flat, x, plan)
     ref = fused_enn.fused_stacked_mlp_reference(flat, x)
     torch.cuda.synchronize()
     assert got.shape == ref.shape == (E, R, O)
     err = (got.float() - ref.float()).abs().max().item()
-    print(f"{name} {dtype}: max|d| {err:.3g}", flush=True)
+    print(f"{_case_id(case)}: max|d| {err:.3g}", flush=True)
     torch.testing.assert_close(got.float(), ref.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
 
@@ -102,3 +122,8 @@ def test_launch_refuses_bad_inputs(cuda):
             flat, torch.randn(4, 16, device=cuda, dtype=torch.float16))
     with pytest.raises(ValueError):
         fused_enn.fused_enn_cuda(flat, torch.randn(4, 16))
+    bf16 = fused_enn.flatten_weights(
+        fused_enn.stacked_layers(list(towers)), torch.bfloat16, cuda)
+    x = torch.randn(4, 16, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError):           # 128-row tiles take no cluster
+        fused_enn.fused_enn_cuda(bf16, x, fused_enn.LaunchPlan(128, 8))

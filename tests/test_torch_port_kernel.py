@@ -118,6 +118,12 @@ def test_flat_layout_pads_to_16_and_keeps_true_widths():
     assert flat.dims == (16, 24, 8) and flat.layout == (2, 16, 24, 8)
     assert flat.w.numel() == 2 * (16 * 32 + 32 * 16)
     assert flat.b.dtype == torch.float32 and flat.b.numel() == 2 * (32 + 16)
+    # the wgmma image pads K and O to 64: two 64 x 64 tiles per tower
+    assert flat.slabs.dtype == torch.bfloat16
+    assert flat.slabs.numel() == 2 * (64 * 64 + 64 * 64)
+    f32 = fused_enn.flatten_weights(fused_enn.stacked_layers(list(towers)),
+                                    torch.float32, torch.device("cpu"))
+    assert f32.slabs is None
     w0, b0 = next(fused_enn._layer_views(flat))
     ref = towers[1].linears[0].weight.t().to(torch.bfloat16)
     assert torch.equal(w0[1], ref)
@@ -184,3 +190,83 @@ def test_model_forward_routes_by_gate(monkeypatch):
     unfused = model(nodes, edges)
     assert calls == []
     torch.testing.assert_close(fused, unfused.detach(), rtol=1e-5, atol=1e-5)
+
+
+def _unswizzle(image, E, K, O):
+    """Reads the slab image back element by element with numpy index
+    arithmetic (independent of the port's torch gather): returns (E, O64,
+    K64) with [e, o, k] the weight of input k in output o."""
+    K64, O64 = -(-K // 64) * 64, -(-O // 64) * 64
+    nk, nch = K64 // 64, O64 // 64
+    flat = np.asarray(image.float())
+    idx = np.arange(flat.size)
+    within, rest = idx % 8, idx // 8
+    phys, rest = rest % 8, rest // 8
+    n, rest = rest % 64, rest // 64
+    ch, rest = rest % nch, rest // nch
+    ks, e = rest % nk, rest // nk
+    k = ks * 64 + (phys ^ (n % 8)) * 8 + within
+    o = ch * 64 + n
+    out = np.full((E, O64, K64), np.nan, np.float32)
+    out[e, o, k] = flat
+    return out
+
+
+@pytest.mark.parametrize("O", [1, 45, 585])
+@pytest.mark.parametrize("K", [100, 685])
+@pytest.mark.parametrize("E", [1, 3])
+def test_slab_image_unswizzles_to_padded_weights(E, K, O):
+    w = torch.from_numpy(seeded((E, O, K), seed=K + O))
+    image = fused_enn.slab_image(w, torch.bfloat16)
+    K64, O64 = -(-K // 64) * 64, -(-O // 64) * 64
+    assert image.numel() == E * O64 * K64
+    ref = np.zeros((E, O64, K64), np.float32)
+    ref[:, :O, :K] = to_np(w.to(torch.bfloat16))
+    np.testing.assert_array_equal(_unswizzle(image, E, K, O), ref)
+
+
+def _preset_sites():
+    """(name, R, E, dims) of the GGNN generate job's launches, B=1000."""
+    from test_torch_port_gpu import SHAPES
+    return {s[0]: (s[2], s[1], (s[3], *s[4], s[5])) for s in SHAPES}
+
+
+@pytest.mark.parametrize("site", ["f_add_2", "f_conn_2", "f_term_2"])
+def test_launch_plan_clusters_the_1000_row_heads(site):
+    """16 row tiles of 64: a cluster of 4 gives 64 blocks, all resident at
+    once; 8 would give 128 blocks in two waves on the H100 (PERF.md)."""
+    R, E, dims = _preset_sites()[site]
+    plan = fused_enn.launch_plan(R, E, dims)
+    assert plan == fused_enn.LaunchPlan(64, fused_enn.MAX_CLUSTER)
+    assert fused_enn.MAX_CLUSTER == 4
+    assert -(-R // 64) * E * plan.cluster == 64
+
+
+@pytest.mark.parametrize("site", ["msg_nns", "att_nn", "emb_nn", "f_add_1",
+                                  "f_conn_1"])
+def test_launch_plan_fills_the_card_without_cluster_at_13000_rows(site):
+    R, E, dims = _preset_sites()[site]
+    plan = fused_enn.launch_plan(R, E, dims)
+    assert plan.cluster == 1
+    assert -(-R // plan.tile_rows) * E >= fused_enn.MIN_BLOCKS
+    # the 250-wide stacks fit 128-row tiles, the 500-wide heads do not
+    assert plan.tile_rows == (128 if max(dims) < 500 else 64)
+
+
+def test_launch_plan_is_deterministic_and_fits_shared_memory():
+    for name, (R, E, dims) in _preset_sites().items():
+        plan = fused_enn.launch_plan(R, E, dims)
+        assert plan == fused_enn.launch_plan(R, E, dims), name
+        for p in [plan, *fused_enn.plan_choices(dims)]:
+            smem, stages = fused_enn.smem_plan(dims, p)
+            assert smem <= fused_enn.MAX_SMEM, (name, p)
+            assert 2 <= stages <= fused_enn.MAX_STAGES, (name, p)
+
+
+def test_swizzle_is_its_own_inverse():
+    t = torch.arange(2 * 64 * 64, dtype=torch.float32).reshape(2, 64, 64)
+    s = fused_enn.swizzle_tiles(t)
+    assert not torch.equal(s, t)
+    assert torch.equal(fused_enn.swizzle_tiles(s), t)
+    # row n keeps its 16-byte groups XOR-permuted by n % 8
+    assert torch.equal(s[0, 3, 8:16], t[0, 3, 16:24])
