@@ -30,6 +30,7 @@ from torch import nn
 # SELU constants (match torch.nn.SELU / AlphaDropout)
 SELU_ALPHA = 1.6732632423543772
 SELU_SCALE = 1.0507009873554805
+ALPHA_PRIME = -SELU_ALPHA * SELU_SCALE
 
 
 def init_linear_(linear: nn.Linear, generator: torch.Generator) -> None:
@@ -64,16 +65,45 @@ class MLP(nn.Module):
         return [self.seq[i] for i in range(0, len(self.seq), 3)]
 
 
-def _dropout(x: torch.Tensor, p: float, train: bool) -> torch.Tensor:
-    return F.alpha_dropout(x, p, training=True) if train and p > 0 else x
+def alpha_dropout_masked(x: torch.Tensor, keep: torch.Tensor, p: float
+                         ) -> torch.Tensor:
+    """torch.nn.AlphaDropout written out, given the keep mask: dropped
+    entries take SELU's negative saturation value, and an affine map
+    restores zero mean and unit variance (``alpha_dropout`` of the JAX
+    package, same arithmetic)."""
+    q = 1.0 - p
+    a = (q + ALPHA_PRIME ** 2 * q * p) ** -0.5
+    b = -a * (1.0 - q) * ALPHA_PRIME
+    return a * torch.where(keep, x, ALPHA_PRIME) + b
 
 
-def mlp(module: MLP, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+def alpha_dropout(x: torch.Tensor, p: float, generator: torch.Generator
+                  ) -> torch.Tensor:
+    """SELU-preserving dropout whose keep mask (probability 1 - p) is drawn
+    from ``generator``, which lives on x's device: the same generator state
+    gives the same mask."""
+    if p <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    return alpha_dropout_masked(x, keep, p)
+
+
+def _dropout(x: torch.Tensor, p: float, train: bool,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Dropout only on training forwards that were handed a generator, as
+    the JAX package drops out only when it is handed a key."""
+    if train and p > 0.0 and generator is not None:
+        return alpha_dropout(x, p, generator)
+    return x
+
+
+def mlp(module: MLP, x: torch.Tensor, train: bool = False,
+        generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """x (..., I) -> (..., O), activations in x's dtype."""
     dt = x.dtype
     for lin in module.linears:
         x = F.selu(torch.matmul(x, lin.weight.to(dt).t()) + lin.bias.to(dt))
-        x = _dropout(x, module.dropout_p, train)
+        x = _dropout(x, module.dropout_p, train, generator)
     return x
 
 
@@ -85,8 +115,8 @@ def stacked_layers(mlps: Sequence[MLP]) -> List[tuple]:
             for l in range(len(per[0]))]
 
 
-def stacked_mlp(mlps: Sequence[MLP], x: torch.Tensor,
-                train: bool = False) -> torch.Tensor:
+def stacked_mlp(mlps: Sequence[MLP], x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """x (..., I) shared input -> (E, ..., O): every tower on the same
     input, one batched product per layer."""
     dt = x.dtype
@@ -97,7 +127,7 @@ def stacked_mlp(mlps: Sequence[MLP], x: torch.Tensor,
         # f32 and rounds it to bf16 once, as XLA's preferred_element_type
         prod = torch.matmul(y, w.to(dt).transpose(1, 2))
         y = F.selu(prod + b.to(dt)[:, None, :])
-        y = _dropout(y, mlps[0].dropout_p, train)
+        y = _dropout(y, mlps[0].dropout_p, train, generator)
     return y.reshape(y.shape[0], *lead, y.shape[-1])
 
 

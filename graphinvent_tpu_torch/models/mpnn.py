@@ -66,12 +66,13 @@ def _edge_type_contraction(edges: torch.Tensor, per_type: torch.Tensor
 
 
 def _enn_stack(cfg: GraphInventConfig, msg_nns: nn.ModuleList,
-               hidden: torch.Tensor, train: bool) -> torch.Tensor:
+               hidden: torch.Tensor, train: bool,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Stacked per-edge-type MLP towers: the fused kernel on grad-free
     forwards, ``core.stacked_mlp`` when training."""
     if fused_gate(cfg, train):
         return fused_stacked_mlp(msg_nns, hidden)
-    return stacked_mlp(list(msg_nns), hidden, train)
+    return stacked_mlp(list(msg_nns), hidden, train, generator)
 
 
 # --------------------------------------------------------------------------
@@ -104,18 +105,21 @@ class GGNN(nn.Module):
             mlp2_dropout_p=cfg.mlp2_dropout_p, generator=g)
 
     def forward(self, nodes: torch.Tensor, edges: torch.Tensor,
-                train: bool = False) -> torch.Tensor:
+                train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator`` (on the tensors' device) draws the dropout masks
+        of a training forward, layer by layer in forward order."""
         cfg = self.cfg
         hidden, _, _, node_mask = _prepare(cfg, nodes, edges)
         for _ in range(cfg.message_passes):
-            per_type = _enn_stack(cfg, self.msg_nns, hidden, train)
+            per_type = _enn_stack(cfg, self.msg_nns, hidden, train, generator)
             messages = _edge_type_contraction(edges, per_type)
             hidden = _masked_update(self.gru, messages, hidden, node_mask)
         fused = fused_gate(cfg, train)
         graph_emb = graph_gather(self.gather, hidden, nodes, node_mask,
-                                 cfg.big_positive, train, fused)
+                                 cfg.big_positive, train, fused, generator)
         return global_readout(self.APDReadout, hidden, graph_emb, train,
-                              fused)
+                              fused, generator)
 
 
 # --------------------------------------------------------------------------

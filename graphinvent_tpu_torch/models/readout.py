@@ -54,44 +54,48 @@ class GlobalReadout(nn.Module):
                              generator)
 
 
-def _mlp(module: MLP, x: torch.Tensor, train: bool, fused: bool
-         ) -> torch.Tensor:
+def _mlp(module: MLP, x: torch.Tensor, train: bool, fused: bool,
+         generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Inference-path dispatch: the fused kernel when the caller's gate
     (models/fused_enn.fused_gate) allowed it, ``core.mlp`` otherwise."""
     if fused:
         from graphinvent_tpu_torch.models.fused_enn import fused_mlp
         return fused_mlp(module, x)
-    return mlp(module, x, train)
+    return mlp(module, x, train, generator)
 
 
 def graph_gather(gather: GraphGather, hidden_nodes: torch.Tensor,
                  input_nodes: torch.Tensor, node_mask: torch.Tensor,
                  big_positive: float, train: bool = False,
-                 fused: bool = False) -> torch.Tensor:
+                 fused: bool = False,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """hidden_nodes (B,N,H), input_nodes (B,N,Fn), node_mask (B,N) -> (B,G).
     A node takes part iff it has degree >= 1; softmax over the node axis
     per output channel."""
     cat = torch.cat([hidden_nodes, input_nodes], dim=2)
     energy_mask = (1.0 - node_mask.to(cat.dtype)) * big_positive
-    energies = _mlp(gather.att_nn, cat, train, fused) - energy_mask[..., None]
+    energies = _mlp(gather.att_nn, cat, train, fused, generator
+                    ) - energy_mask[..., None]
     attention = torch.softmax(energies, dim=1)
-    embedding = _mlp(gather.emb_nn, hidden_nodes, train, fused)
+    embedding = _mlp(gather.emb_nn, hidden_nodes, train, fused, generator)
     return torch.sum(attention * embedding, dim=1)
 
 
 def global_readout(head: GlobalReadout, node_level_output: torch.Tensor,
                    graph_embedding: torch.Tensor, train: bool = False,
-                   fused: bool = False) -> torch.Tensor:
+                   fused: bool = False,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """node_level_output (B,N,H), graph_embedding (B,G) -> APD logits
     (B, N*f_add_elems + N*f_conn_elems + 1), no final activation."""
     B = node_level_output.shape[0]
-    f_add_1 = _mlp(head.fAddNet1, node_level_output, train, fused
+    g = generator
+    f_add_1 = _mlp(head.fAddNet1, node_level_output, train, fused, g
                    ).reshape(B, -1)
-    f_conn_1 = _mlp(head.fConnNet1, node_level_output, train, fused
+    f_conn_1 = _mlp(head.fConnNet1, node_level_output, train, fused, g
                     ).reshape(B, -1)
     f_add_2 = _mlp(head.fAddNet2, torch.cat([f_add_1, graph_embedding], 1),
-                   train, fused)
+                   train, fused, g)
     f_conn_2 = _mlp(head.fConnNet2, torch.cat([f_conn_1, graph_embedding], 1),
-                    train, fused)
-    f_term_2 = _mlp(head.fTermNet2, graph_embedding, train, fused)
+                    train, fused, g)
+    f_term_2 = _mlp(head.fTermNet2, graph_embedding, train, fused, g)
     return torch.cat([f_add_2, f_conn_2, f_term_2], dim=1)

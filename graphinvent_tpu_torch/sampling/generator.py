@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, List, Optional, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,7 +36,7 @@ from graphinvent_tpu_torch.config import GraphInventConfig
 from graphinvent_tpu_torch.sampling.actions import (
     apply_actions, decode_actions, select_rows,
 )
-from graphinvent_tpu_torch.utils.device import resolve_device
+from graphinvent_tpu_torch.utils.device import compute_dtype, resolve_device
 
 Params = Any
 
@@ -54,19 +54,34 @@ class SampleResult:
     done: Optional[np.ndarray] = None      # 0/1 per row
 
 
-def batch_generator(seed: int, batch_idx: int, device: torch.device
-                    ) -> torch.Generator:
-    """The generator for sampling batch ``batch_idx`` of a job seeded with
-    ``seed`` (the port's ``fold_in(PRNGKey(seed), batch_idx)``)."""
-    state = np.random.SeedSequence([seed, batch_idx]).generate_state(
+# what a generator is for: the fourth entry of its seed sequence
+STREAM_GENERATE, STREAM_EVALUATE, STREAM_DROPOUT, STREAM_TEST = range(4)
+
+
+def seeded_generator(entropy: Sequence[int], device: torch.device,
+                     stream: int = STREAM_GENERATE) -> torch.Generator:
+    """A generator on ``device`` seeded from up to three integers and the
+    ``stream`` it serves (the port's nested ``fold_in``).  numpy's
+    SeedSequence ignores trailing zeros, so ``[s, k]`` and ``[s, k, 0]``
+    would be one stream: the entropy is zero-padded to three entries and
+    ``stream`` goes fourth, which keeps the uses apart whatever their
+    counters are."""
+    entropy = list(entropy)
+    if len(entropy) > 3:
+        raise ValueError("seeded_generator takes at most three integers")
+    state = np.random.SeedSequence(
+        entropy + [0] * (3 - len(entropy)) + [stream]).generate_state(
         1, np.uint64)[0]
     gen = torch.Generator(device=device)
     gen.manual_seed(int(state) & ((1 << 63) - 1))
     return gen
 
 
-def _compute_dtype(cfg: GraphInventConfig) -> torch.dtype:
-    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+def batch_generator(seed: int, batch_idx: int, device: torch.device
+                    ) -> torch.Generator:
+    """The generator for sampling batch ``batch_idx`` of a job seeded with
+    ``seed`` (the port's ``fold_in(PRNGKey(seed), batch_idx)``)."""
+    return seeded_generator([seed, batch_idx], device)
 
 
 def _sample_loop(cfg: GraphInventConfig, params: Params,
@@ -77,7 +92,7 @@ def _sample_loop(cfg: GraphInventConfig, params: Params,
     N, Fn, E = cfg.max_n_nodes, cfg.n_node_features, cfg.n_edge_features
     L = cfg.gen_action_budget
     max_rounds = L + 4
-    dt = _compute_dtype(cfg)
+    dt = compute_dtype(cfg)
 
     nodes = torch.zeros(B, N, Fn, dtype=dt, device=device)
     edges = torch.zeros(B, N, N, E, dtype=dt, device=device)

@@ -1,4 +1,5 @@
-"""The port's one rule for where it runs: ``cfg.device``."""
+"""Where the port runs (``cfg.device``) and in which type it computes
+(``cfg.compute_dtype``)."""
 
 from __future__ import annotations
 
@@ -16,3 +17,9 @@ def resolve_device(name: str) -> torch.device:
     if name == "cpu":
         return torch.device("cpu")
     raise ValueError(f"device must be 'cuda' or 'cpu', got {name!r}")
+
+
+def compute_dtype(cfg) -> torch.dtype:
+    """The activations' type: bf16 (weights stay f32 and are cast at use)
+    or f32."""
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32

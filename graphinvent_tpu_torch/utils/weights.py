@@ -6,15 +6,24 @@
   (``msg_nns.{e}.seq.{3l}.weight``, ``gru.weight_ih``,
   ``gather.att_nn.seq.{3l}.*``, ``APDReadout.fAddNet1.*``, ...), the layout
   the JAX package imports in ``utils/torch_import.py``.
+* The way back, for tests and tools: a reference-layout state_dict becomes
+  the JAX package's GGNN pytree as numpy arrays
+  (:func:`jax_params_from_state_dict`); Adam's moments cross the same two
+  bridges, since they have the parameters' names and shapes.
 * Checkpoints are ``model_restart_{epoch}.pth`` files holding that
   state_dict, which the JAX package reads through
-  ``checkpoint_path(..., allow_torch=True)`` and ``load_params_any``.
+  ``checkpoint_path(..., allow_torch=True)`` and ``load_params_any``.  A
+  train job writes Adam's ``step``, ``mu`` and ``nu`` beside each as
+  ``optimizer_restart_{epoch}.pth``, a name the JAX package's
+  ``latest_checkpoint`` does not match.  Both are written to a ``.tmp``
+  file and moved into place.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Mapping
+import re
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +73,44 @@ def state_dict_from_jax_params(cfg: GraphInventConfig, params: Mapping
     return sd
 
 
+def _mlp_tree(prefix: str, sd: Mapping[str, Any]) -> Dict[str, list]:
+    layers = []
+    while f"{prefix}.seq.{3 * len(layers)}.weight" in sd:
+        l = 3 * len(layers)
+        layers.append({"w": _np(sd[f"{prefix}.seq.{l}.weight"]),
+                       "b": _np(sd[f"{prefix}.seq.{l}.bias"])})
+    return {"layers": layers}
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().to("cpu", torch.float32).numpy()
+    return np.array(x, dtype=np.float32)
+
+
+def jax_params_from_state_dict(cfg: GraphInventConfig, sd: Mapping[str, Any]
+                               ) -> Dict[str, Any]:
+    """Reference-layout state_dict (tensors or arrays) -> the JAX package's
+    GGNN pytree as float32 numpy arrays: the inverse of
+    :func:`state_dict_from_jax_params`."""
+    if cfg.model != "GGNN":
+        raise NotImplementedError(f"weight bridge for {cfg.model!r} is not "
+                                  f"ported yet (see ROADMAP.md)")
+    towers = [_mlp_tree(f"msg_nns.{e}", sd)["layers"]
+              for e in range(cfg.n_edge_features)]
+    return {
+        "msg_nns": {"layers": [
+            {k: np.stack([t[l][k] for t in towers]) for k in ("w", "b")}
+            for l in range(len(towers[0]))]},
+        "gru": {ours: _np(sd[f"gru.{theirs}"])
+                for ours, theirs in _GRU.items()},
+        "gather": {ours: _mlp_tree(f"gather.{theirs}", sd)
+                   for ours, theirs in _GATHER.items()},
+        "apd": {ours: _mlp_tree(f"APDReadout.{theirs}", sd)
+                for ours, theirs in _APD.items()},
+    }
+
+
 def model_from_state_dict(cfg: GraphInventConfig,
                           sd: Mapping[str, torch.Tensor]) -> nn.Module:
     """Reference-layout state_dict (``module.`` prefixes allowed) -> the
@@ -92,12 +139,49 @@ def checkpoint_path(job_dir: str, epoch: int) -> str:
     return os.path.join(job_dir, f"model_restart_{epoch}.pth")
 
 
-def save_checkpoint(model: nn.Module, job_dir: str, epoch: int) -> str:
-    path = checkpoint_path(job_dir, epoch)
+def optimizer_path(job_dir: str, epoch: int) -> str:
+    return os.path.join(job_dir, f"optimizer_restart_{epoch}.pth")
+
+
+def latest_checkpoint(job_dir: str) -> Optional[Tuple[str, int]]:
+    """(path, epoch) of the newest ``model_restart_<epoch>.pth`` in the
+    dir, or None."""
+    best: Optional[Tuple[str, int]] = None
+    if not os.path.isdir(job_dir):
+        return None
+    for name in os.listdir(job_dir):
+        m = re.match(r"model_restart_(\d+)\.pth$", name)
+        if m and (best is None or int(m.group(1)) > best[1]):
+            best = (os.path.join(job_dir, name), int(m.group(1)))
+    return best
+
+
+def _save_atomic(obj: Any, path: str) -> None:
     tmp = path + ".tmp"
-    torch.save(reference_state_dict(model), tmp)
+    torch.save(obj, tmp)
     os.replace(tmp, path)
+
+
+def save_checkpoint(model: nn.Module, job_dir: str, epoch: int,
+                    optimizer_state: Optional[Mapping[str, Any]] = None
+                    ) -> str:
+    """Writes the model's state_dict and, when given, the optimizer's
+    (``train.optim.Adam.state_dict()``) beside it."""
+    path = checkpoint_path(job_dir, epoch)
+    _save_atomic(reference_state_dict(model), path)
+    if optimizer_state is not None:
+        _save_atomic(dict(optimizer_state), optimizer_path(job_dir, epoch))
     return path
+
+
+def load_optimizer_state(job_dir: str, epoch: int
+                         ) -> Optional[Dict[str, Any]]:
+    """The optimizer state saved with ``epoch``'s checkpoint, or None where
+    there is none (a reference checkpoint: Adam then starts fresh)."""
+    path = optimizer_path(job_dir, epoch)
+    if not os.path.exists(path):
+        return None
+    return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def load_checkpoint(cfg: GraphInventConfig, path: str) -> nn.Module:

@@ -1,4 +1,5 @@
-"""The hand-written CUDA kernel against its plain version, on the card.
+"""The hand-written CUDA kernel against its plain version, and the training
+path's device code (uploads, wire decoding, launch accounting), on the card.
 
 Needs an NVIDIA Hopper GPU and nvcc; skips elsewhere.  Imports no JAX, so
 it also runs where JAX is not installed:
@@ -127,3 +128,82 @@ def test_launch_refuses_bad_inputs(cuda):
     x = torch.randn(4, 16, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(RuntimeError):           # 128-row tiles take no cluster
         fused_enn.fused_enn_cuda(bf16, x, fused_enn.LaunchPlan(128, 8))
+
+
+# --------------------------------------------------------------------------
+# the training path on the card
+# --------------------------------------------------------------------------
+
+def _train_setup(cuda, compute_dtype):
+    from graphinvent_tpu_torch.config import preset
+    from graphinvent_tpu_torch.models import build_model
+    from graphinvent_tpu_torch.utils.synthetic import synthetic_graphs
+    cfg = preset("GGNN", device="cuda", compute_dtype=compute_dtype)
+    model = build_model(cfg, torch.Generator().manual_seed(0)).to(cuda)
+    nodes, edges = synthetic_graphs(cfg, 96, seed=1)
+    rng = np.random.default_rng(1)
+    apds = np.zeros((96, cfg.dim_apd), np.int8)
+    apds[np.arange(96), rng.integers(0, cfg.dim_apd, 96)] = 1
+    apds[::5, 3] += 2
+    valid = np.ones(96, np.float32)
+    valid[-7:] = 0
+    return cfg, model, {"nodes": nodes.astype(np.int8),
+                        "edges": edges.astype(np.int8), "apds": apds,
+                        "valid": valid}
+
+
+@pytest.mark.gpu
+def test_wire_formats_decode_to_the_same_tensors_on_the_card(cuda):
+    """Pinned, non-blocking uploads on the copy stream, then the bit
+    unpacking and the scatter-add on the device: byte-equal to numpy."""
+    from graphinvent_tpu_torch.data.loader import pack_rows, sparse_apds
+    from graphinvent_tpu_torch.train import step
+    cfg, _, rows = _train_setup(cuda, "float32")
+    idx, val = sparse_apds(rows["apds"], 32)
+    sparse = {"nodes_p": pack_rows(rows["nodes"]),
+              "edges_p": pack_rows(rows["edges"]), "apds_i": idx,
+              "apds_v": val, "valid": rows["valid"]}
+    place = step.BatchUploader(cuda)
+    for _ in range(3):                  # the pinned buffers are reused
+        got = step.batch_arrays(cfg, place(sparse), torch.float32)
+        want = step.batch_arrays(cfg, place(rows), torch.float32)
+        for g, w, name in zip(got, want, ("nodes", "edges", "apds")):
+            assert g.device.type == "cuda" and torch.equal(g, w)
+            np.testing.assert_array_equal(
+                g.cpu().numpy(), rows[name].astype(np.float32))
+    packed = torch.from_numpy(sparse["edges_p"]).to(cuda)
+    np.testing.assert_array_equal(
+        step.unpackbits(packed, 507).cpu().numpy(),
+        np.unpackbits(sparse["edges_p"], axis=1, count=507))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_train_step_launches_no_kernel_and_eval_steps_ten(cuda,
+                                                          compute_dtype):
+    from graphinvent_tpu_torch.train import step
+    from graphinvent_tpu_torch.train.optim import Adam, onecycle_for_config
+    cfg, model, rows = _train_setup(cuda, compute_dtype)
+    batch = step.BatchUploader(cuda)(rows)
+    adam = Adam(model)
+    train = step.make_train_step(cfg, onecycle_for_config(cfg, 10), model,
+                                 adam)
+    fused_enn.reset_launch_counts()
+    first = train(batch).item()
+    for _ in range(5):
+        last = train(batch).item()
+    assert sum(fused_enn.LAUNCHES.values()) == 0
+    assert np.isfinite([first, last]).all() and last < first
+    loss = step.make_eval_step(cfg, model)(batch)
+    assert sum(fused_enn.LAUNCHES.values()) == 10
+    nll = step.make_likelihood_step(cfg, model)(batch)
+    assert sum(fused_enn.LAUNCHES.values()) == 20
+    # the kernel path scores the weights the six updates left: it agrees
+    # with the plain path on them (f32 1e-4; bf16 0.05 on a loss of ~6)
+    plain_cfg = cfg.replace(fused_inference_enn=False)
+    model.cfg = plain_cfg
+    plain = step.make_eval_step(plain_cfg, model)(batch)
+    assert sum(fused_enn.LAUNCHES.values()) == 20
+    tol = 1e-4 if compute_dtype == "float32" else 0.05
+    assert abs(loss.item() - plain.item()) <= tol
+    assert nll.shape == (96,) and bool(torch.isfinite(nll).all())

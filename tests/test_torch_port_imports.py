@@ -30,6 +30,17 @@ def _imported(path):
             yield node.module
 
 
+def test_every_sub_package_is_covered():
+    dirs = {os.path.dirname(p) for p in _sources()}
+    for sub in ("chem", "data", "eval", "models", "sampling", "train",
+                "utils"):
+        assert os.path.join("graphinvent_tpu_torch", sub) in dirs, sub
+    # h5py is imported by the storage module alone, and only inside calls
+    users = [p for p in _sources() if "h5py" in set(_imported(p))]
+    assert users == [os.path.join("graphinvent_tpu_torch", "data",
+                                  "store.py")]
+
+
 @pytest.mark.parametrize("path", _sources())
 def test_source_imports_nothing_of_jax(path):
     bad = [m for m in _imported(path) if m.split(".")[0] in FORBIDDEN]
