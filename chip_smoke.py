@@ -63,8 +63,40 @@ Phases (any failure raises and the script exits non-zero):
      a seeded sampler batch run twice (byte-equal); a selection on the
      packed edge list as a gather against the one-hot product; time per
      sampler round and per train step, the device's busy share over 3
-     profiled steps, peak device memory.
+     profiled steps, peak device memory;
+  13. the fine-tune job and the two-phase sampler, bf16, B=1000, on
+     pretrained models whose rollouts build molecules: phase 8's GGNN and
+     phase 11's AttGGNN and EMN checkpoints with their APD heads' "add to
+     node 0" and "terminate" logits raised; the GGNN's seeded rollouts must
+     build valid molecules that score above 0;
+  13a. the fine-tune job through ``main`` (QED x target_size=9,
+     continuous, sigma 20, alpha 0.5; GGNN 3 steps with one evaluation and
+     checkpoint, AttGGNN and EMN one step each): finite losses,
+     fine-tuning.log, convergence.log, a checkpoint with its optimizer
+     sidecar, BASF rows past the gate in some GGNN step, and exactly one
+     forward's launches (GGNN 10, AttGGNN 6, EMN 9) at every sampler round
+     and every forward-only replay step, none in the gradient replays;
+  13b. numerics: the forward-only replay of 1,000 trajectories, kernel path
+     against plain path per trajectory (f32 1e-3; bf16 the bar that
+     ``probe_rl_numerics.py --device cpu`` read); the f32 sampler's
+     recorded ll against the replay of its actions (1e-4); one ``rl_loss``
+     gradient at B=64 on the card against the CPU (as phase 12: f32 loss
+     1e-3, every f32 leaf 2e-4 on the card's SELU branches, every float64
+     leaf 1e-9), with no kernel launch; one learning step: the prior and the
+     BASF byte-equal to before, the agent's kernel-path logits within 0.15
+     of its plain path's, and the same step from the same seed and
+     checkpoint again gives byte-equal agent weights;
+  13c. timings: a step split into its pieces (CUDA events at each piece's
+     end) and its wall, the device's busy share over a profiled step, the
+     gradient replay's time and peak memory at ``rl_remat_segment`` 1 and
+     2;
+  13d. the generate job with the two-phase sampler (n_samples=4000, phase 1
+     capped at TWO_PHASE_ROUNDS rounds) on the fine-tune GGNN: launches 10
+     a round of every loop, the job's files, and every row that finished in
+     phase 1 byte-equal to the single-phase sampler's row (and its
+     likelihood in the job's file).
 
+Each phase's header line carries the seconds since the script started.
 The second-to-last line is {"kernels": [...]}, the last line
 {"ok": true, "device": {...}}.  The jobs run in temporary directories,
 removed at the end.
@@ -99,7 +131,12 @@ B, N = 1000, 13
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
+START = time.time()
+
+
 def log(msg: str) -> None:
+    if msg.startswith("["):
+        msg += f"  (at {time.time() - START:.0f} s)"
     print(msg, flush=True)
 
 
@@ -1066,10 +1103,11 @@ def bound(flat, R: int, dt) -> tuple:
 
 def phase_timings(fused_enn, groups) -> list:
     """``groups``: per model (tag, its sites, bf16 errors by site, launch
-    counts by job and weight layout) -> the rows of the kernels line."""
+    counts by job and weight layout) -> the timed sites, for
+    :func:`kernel_rows` once every job has run."""
     log("[6 timings, bf16, CUDA events, warm L2]")
     dt = torch.bfloat16
-    rows = []
+    timed = []
     for tag, sites, errs, by_job in groups:
         forward_ms = 0.0
         for i, site in enumerate(sites):
@@ -1089,32 +1127,41 @@ def phase_timings(fused_enn, groups) -> list:
                     lambda: fused_enn.fused_stacked_mlp_reference(flat, x))
                 library_ms = cuda_ms(lambda: unfused_forward(layers, x))
             bound_ms, bound_by = bound(flat, site.rows, dt)
-            for job, counts in by_job.items():
-                check(counts.get(flat.layout, 0) > 0,
-                      f"{site.name}: the kernel never ran there in the "
-                      f"{tag} {job} job")
-            launches = sum(c[flat.layout] for c in by_job.values())
             log(f"    {site.name:<32} R={site.rows:<6} kernel {ms:.4f} ms "
                 f"(tile {plan.tile_rows}, cluster {plan.cluster}; "
                 f"{other_ms:.4f} ms at tile {other.tile_rows}, cluster "
                 f"{other.cluster})  plain {plain_ms:.4f} ms  unfused "
                 f"{library_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})")
-            rows.append({
+            row = {
                 "name": f"{site.wrapper}[{site.name}]", "route": "cuda",
-                "source": SOURCE, "replaces": REPLACES, "launches": launches,
-                "launches_by_job": {job: counts[flat.layout]
-                                    for job, counts in by_job.items()},
+                "source": SOURCE, "replaces": REPLACES,
                 "max_abs_err": errs[site.name], "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": library_ms,
                 "rows": site.rows,
                 "plan": {"tile_rows": plan.tile_rows,
                          "cluster": plan.cluster},
-                "bound_share": bound_ms / ms, "vs_library": ms / library_ms})
+                "bound_share": bound_ms / ms, "vs_library": ms / library_ms}
+            timed.append((tag, site.name, flat.layout, by_job, row))
             forward_ms += ms * site.per_forward
         log(f"    {tag}: sum of one forward's "
             f"{sum(s.per_forward for s in sites)} launches: "
             f"{forward_ms:.4f} ms")
+    return timed
+
+
+def kernel_rows(timed) -> list:
+    """The rows of the kernels line: each timed site with its launches in
+    every job of its model."""
+    rows = []
+    for tag, name, layout, by_job, row in timed:
+        for job, counts in by_job.items():
+            check(counts.get(layout, 0) > 0, f"{name}: the kernel never ran "
+                  f"there in the {tag} {job} job")
+        rows.append(dict(row, launches=sum(c[layout]
+                                           for c in by_job.values()),
+                         launches_by_job={job: counts[layout] for job, counts
+                                          in by_job.items()}))
     return rows
 
 
@@ -1427,6 +1474,500 @@ def phase_model_timings(fused_enn, models, jobs: dict, data: dict) -> None:
                 f"{e.count:5d}x  {e.key[:70]}")
 
 
+# --------------------------------------------------------------------------
+# phase 13: the fine-tune job and the two-phase sampler
+# --------------------------------------------------------------------------
+
+# Forward-only replay, kernel path against plain path, the largest
+# per-trajectory |log-likelihood difference|.  bf16: twice the largest
+# |bf16 plain - f32 plain| that probe_rl_numerics.py read on the CPU at
+# preset widths (0.6327, PERF.md), fixed before the first run on the card.
+REPLAY_TOL = {torch.float32: 1e-3, torch.bfloat16: 1.27}
+SAMPLER_LL_TOL = 1e-4    # f32: the sampler's summed ll against the replay
+RL_ROWS = 64             # rollout rows of the gradient check
+FT_SCORE = dict(score_components=("QED", "target_size=9"),
+                score_thresholds=(0.0, 0.0), score_type="continuous",
+                sigma=20.0, alpha=0.5, qsar_models={})
+# The fine-tune jobs' pretrained models.  Phase 8's two epochs leave a GGNN
+# whose rollouts end after one invalid action (median 1, 0.1% valid), so
+# the fine-tune path would score nothing and the BASF gate would pass no
+# row.  Raising its APD head's logits of "add an atom to node 0" and of
+# "terminate" by FT_HEAD_BIAS (as the CPU tests' bias_head) makes rollouts
+# that build molecules (median 4 actions, about a quarter valid); the
+# AttGGNN's and the EMN's phase 11 checkpoints get the same raise.
+FT_HEAD_BIAS = (1, 4.0, 2.0)     # (nodes, add, terminate)
+TWO_PHASE_ROUNDS = 5             # about the median action count of that GGNN
+
+
+def raise_head(cfg, model, nodes: int, add: float, term: float):
+    """Raises the APD head's logits of "add an atom to node 0 .. nodes-1" by
+    ``add`` and of "terminate" by ``term``; -> ``model``."""
+    head = model.APDReadout
+    with torch.no_grad():
+        head.fAddNet2.linears[-1].bias[:nodes * cfg.len_f_add_per_node] += add
+        head.fTermNet2.linears[-1].bias[:] += term
+    return model
+
+
+def rollout_stats(cfg, model) -> dict:
+    """One seeded bf16 batch of B rollouts: actions a row, the fractions
+    that terminate, are valid molecules and are unique valid ones, and the
+    fine-tune score's mean and share above 0."""
+    from graphinvent_tpu_torch.eval.scoring import ScoringFunction
+    from graphinvent_tpu_torch.sampling import GraphSampler
+    from graphinvent_tpu_torch.sampling.generator import batch_generator
+    dev = torch.device("cuda")
+    res = GraphSampler(cfg, B, device=dev).sample(
+        model, batch_generator(0, 0, dev), quiet=True)
+    term = res.properly_terminated != 0
+    valid = np.array([bool(t) and g.is_valid()
+                      for g, t in zip(res.graphs, term)])
+    seen, unique = set(), np.zeros(B, bool)
+    for i in np.nonzero(valid)[0]:
+        smiles = res.graphs[i].get_smiles()
+        unique[i] = smiles not in seen
+        seen.add(smiles)
+    scores = ScoringFunction(cfg.replace(**FT_SCORE)).compute_score(
+        res.graphs, res.properly_terminated, valid.astype(np.int8),
+        unique.astype(np.int8))
+    return dict(median=float(np.median(res.t_counts)),
+                max=int(res.t_counts.max()), term=float(term.mean()),
+                valid=float(valid.mean()), unique=float(unique.mean()),
+                score=float(np.mean(scores)),
+                scored=float(np.mean(scores > 0)))
+
+
+def fmt_stats(st: dict) -> str:
+    return (f"actions a row median {st['median']:g} max {st['max']}; "
+            f"terminated {st['term']:.3f}, valid {st['valid']:.3f}, unique "
+            f"valid {st['unique']:.3f}; score mean {st['score']:.4f}, above 0 "
+            f"{st['scored']:.3f}")
+
+
+def phase_pretrained(cfg, models, root: str, job: str, jobs: dict) -> dict:
+    """-> model name -> (directory, epoch) of the fine-tune job's pretrained
+    checkpoint: phase 8's or phase 11's, its head raised by FT_HEAD_BIAS."""
+    from graphinvent_tpu_torch.utils.weights import save_checkpoint
+    log(f"[13 the fine-tune jobs' pretrained models: phase 8's and 11's "
+        f"checkpoints, heads raised by {FT_HEAD_BIAS}]")
+    out = {}
+    for name, src, epoch in (("GGNN", job, 2), ("AttGGNN", jobs["AttGGNN"], 1),
+                             ("EMN", jobs["EMN"], 1)):
+        base = cfg if name == "GGNN" else models[name][0]
+        run_cfg, model = load_trained(base, src, "bfloat16", epoch)
+        before = rollout_stats(run_cfg, model.eval())
+        raise_head(run_cfg, model, *FT_HEAD_BIAS)
+        ft_dir = os.path.join(root, "pretrained_" + name)
+        os.makedirs(ft_dir)
+        save_checkpoint(model, ft_dir, epoch)
+        out[name] = (ft_dir, epoch)
+        st = rollout_stats(run_cfg, model)
+        log(f"    {name:<8} epoch {epoch}: {fmt_stats(before)}\n"
+            f"      head raised: {fmt_stats(st)}")
+        if name == "GGNN":
+            check(st["median"] >= 3 and st["valid"] >= 0.1
+                  and st["scored"] > 0,
+                  f"the fine-tune GGNN's rollouts build no molecules: {st}")
+    return out
+
+
+def fine_tune_cfg(cfg, data: dict, pretrained: str, **kw):
+    return cfg.replace(job_type="fine-tune", dataset_dir=data["dir"] + "/",
+                       pretrained_model_dir=pretrained + "/", batch_size=B,
+                       tensorboard_dir="", device="cuda",
+                       compute_dtype="bfloat16", **FT_SCORE, **kw)
+
+
+def run_fine_tune(fused_enn, tag: str, ft_cfg, job: str):
+    """The fine-tune job through ``main``, checked: launches (10 a GGNN
+    forward at every sampler round and forward-only replay step, none in
+    the gradient replays), losses, logs, checkpoints -> (workflow, launch
+    counts by weight layout)."""
+    from graphinvent_tpu_torch.utils.weights import (
+        checkpoint_path, load_checkpoint, load_optimizer_state,
+        reference_state_dict,
+    )
+    torch.cuda.reset_peak_memory_stats()
+    fused_enn.reset_launch_counts()
+    workflow, wall = run_job(ft_cfg, job)
+    tuner = workflow.fine_tuner
+    rounds = [r for r, _ in workflow.batch_stats]
+    launches = check_launches(fused_enn, ft_cfg, f"{tag} fine-tune job",
+                              sum(rounds) + sum(tuner.replay_steps))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    start = tuner.start_step
+    steps = list(range(start, start + ft_cfg.epochs))
+    evals = [s for s in steps if s % ft_cfg.sample_every == 0]
+    check(len(tuner.replay_steps) == 2 * len(steps)
+          and len(rounds) == 1 + 2 * len(steps) + len(evals),
+          f"{tag}: {len(rounds)} rollouts, {len(tuner.replay_steps)} replays")
+    conv = read_convergence(job)
+    check([int(c[0]) for c in conv] == steps
+          and all(math.isfinite(x) for c in conv for x in c),
+          f"{tag} convergence.log: {conv}")
+    with open(os.path.join(job, "fine-tuning.log")) as fh:
+        lines = fh.read().splitlines()
+    check(lines[0] == "Step, Score" and [l.split(",")[0] for l in lines[1:]]
+          == [f"Step {s}" for s in [start - 1] + evals]
+          and all(math.isfinite(float(l.split(",")[1])) for l in lines[1:]),
+          f"{tag} fine-tuning.log: {lines}")
+    last = evals[-1]
+    state = load_optimizer_state(job, last)
+    check(state is not None and state["step"] == last - start + 1,
+          f"{tag}: optimizer sidecar of step {last}")
+    saved = load_checkpoint(ft_cfg, checkpoint_path(job, last))
+    if last == steps[-1]:
+        now = reference_state_dict(tuner.agent)
+        check(all(torch.equal(v, now[k])
+                  for k, v in saved.state_dict().items()),
+              f"{tag}: the last checkpoint is not the agent")
+    log(f"    {tag:<8} job {wall:.2f} s: steps {steps}, losses "
+        f"{[round(c[2], 4) for c in conv]}, avg scores "
+        f"{[round(c[4], 4) for c in conv]}, evaluation scores "
+        f"{[l.split(', ')[1] for l in lines[1:]]}; {len(rounds)} rollouts, "
+        f"{sum(rounds)} rounds; replays of {tuner.replay_steps} steps; "
+        f"{sum(launches.values())} kernel launches "
+        f"({per_forward(ft_cfg)} a forward); BASF rows past the gate "
+        f"{tuner.basf_gated}; peak device memory {peak:.0f} MiB")
+    for s, times in zip(steps, tuner.step_timings):
+        log(f"      step {s}: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in times.items())
+            + f" s; sum {sum(times.values()):.3f} s")
+    return workflow, launches
+
+
+def phase_fine_tune(fused_enn, cfg, models, root: str, data: dict,
+                    pretrained: dict) -> dict:
+    """-> launch counts of each fine-tune job by model."""
+    log("[13a fine-tune jobs: bf16, B=1000; GGNN 3 steps, AttGGNN and EMN "
+        "1 step, on the pretrained models]")
+    out = {}
+    workflow, out["GGNN"] = run_fine_tune(
+        fused_enn, "GGNN", fine_tune_cfg(cfg, data, pretrained["GGNN"][0],
+                                         epochs=3, sample_every=3),
+        os.path.join(root, "fine_tune_GGNN"))
+    check(sum(workflow.fine_tuner.basf_gated) > 0,
+          "GGNN: no BASF row passed the gate in any step")
+    for name in ("AttGGNN", "EMN"):
+        _, out[name] = run_fine_tune(
+            fused_enn, name, fine_tune_cfg(models[name][0], data,
+                                           pretrained[name][0], epochs=1,
+                                           sample_every=1),
+            os.path.join(root, "fine_tune_" + name))
+    return out
+
+
+def rl_gradients(cfg, model, batches, device, dtype) -> tuple:
+    """(loss, gradient by leaf as float64 on the CPU) of one ``rl_loss``
+    and its backward, on a copy of ``model`` in ``dtype`` on ``device``.
+    ``batches``: two (actions, t_counts, target, mask) of numpy arrays."""
+    from graphinvent_tpu_torch.rl.workflow_rl import rl_loss
+    m = copy.deepcopy(model).to(device=device, dtype=dtype)
+
+    def put(batch):
+        a, t, target, mask = (torch.from_numpy(x).to(device) for x in batch)
+        return a, t, target.to(dtype), mask.to(dtype)
+
+    apply_fn = None
+    if dtype == torch.float64:      # the states are 0/1: exact in any type
+        apply_fn = lambda mm, nodes, edges: mm(nodes.to(dtype),
+                                               edges.to(dtype))
+    loss = rl_loss(cfg, m, *map(put, batches), cfg.alpha, apply_fn)
+    loss.backward()
+    return loss.item(), {n: p.grad.double().cpu()
+                         for n, p in m.named_parameters()}
+
+
+def phase_fine_tune_numerics(fused_enn, cfg, root: str, data: dict,
+                             pretrained: tuple) -> dict:
+    """-> the fine-tuner of the step checks, for the timings."""
+    from graphinvent_tpu_torch.rl.workflow_rl import (
+        ROLE_AGENT, ROLE_BASF, FineTuner, rl_generator,
+    )
+    from graphinvent_tpu_torch.sampling import GraphSampler
+    from graphinvent_tpu_torch.sampling.replay import trajectory_loglik
+    from graphinvent_tpu_torch.utils.synthetic import synthetic_graphs
+    from graphinvent_tpu_torch.workflow import Workflow
+    log("[13b fine-tune numerics on the card]")
+    dev = torch.device("cuda")
+    job, epoch = pretrained
+    bf_cfg, model = load_trained(cfg, job, "bfloat16", epoch)
+    model.eval()
+    res = GraphSampler(bf_cfg, B, device=dev).sample(
+        model, rl_generator(0, 1, ROLE_AGENT, dev), quiet=True)
+    a = torch.from_numpy(res.actions).to(dev)
+    t = torch.from_numpy(res.t_counts).to(dev)
+    steps = int(min(res.t_counts.max(), res.actions.shape[1]))
+    for run_cfg in (bf_cfg.replace(compute_dtype="float32"), bf_cfg):
+        dt = torch.bfloat16 if run_cfg.compute_dtype == "bfloat16" \
+            else torch.float32
+        with torch.inference_mode():
+            fused_enn.reset_launch_counts()
+            kernel = with_cfg(model, run_cfg, lambda: trajectory_loglik(
+                run_cfg, model, a, t))
+            torch.cuda.synchronize()
+            launched = sum(fused_enn.LAUNCHES.values())
+            plain_cfg = run_cfg.replace(fused_inference_enn=False)
+            plain = with_cfg(model, plain_cfg, lambda: trajectory_loglik(
+                plain_cfg, model, a, t))
+            torch.cuda.synchronize()
+        check(launched == per_forward(run_cfg) * steps,
+              f"{dt} replay: {launched} launches for {steps} steps")
+        check(sum(fused_enn.LAUNCHES.values()) == launched,
+              "the plain replay launched the kernel")
+        check(bool(torch.isfinite(kernel).all()), "non-finite replay")
+        d = (kernel - plain).abs()
+        log(f"    forward-only replay of {B} trajectories ({steps} steps, "
+            f"{launched} launches), {str(dt)[6:]}: per trajectory "
+            f"|kernel path - plain path| max {d.max().item():.4g}, mean "
+            f"{d.mean().item():.3g} (tol {REPLAY_TOL[dt]:g}); ll mean "
+            f"{plain.mean().item():.4f}")
+        check(d.max().item() <= REPLAY_TOL[dt],
+              f"{dt}: the replay's kernel path disagrees with the plain path")
+
+    # the f32 sampler's recorded ll against the replay of its actions
+    f32_cfg, model32 = load_trained(cfg, job, "float32", epoch)
+    model32.eval()
+    sampler32 = GraphSampler(f32_cfg, B, device=dev)
+    res32 = sampler32.sample(model32, rl_generator(0, 1, ROLE_BASF, dev),
+                             quiet=True)
+    with torch.inference_mode():
+        ll = trajectory_loglik(f32_cfg, model32,
+                               torch.from_numpy(res32.actions).to(dev),
+                               torch.from_numpy(res32.t_counts).to(dev))
+    d = np.abs(ll.cpu().numpy() - res32.final_loglikelihoods).max()
+    log(f"    f32 sampler batch: recorded ll against the kernel-path replay "
+        f"of its actions, max |diff| {d:.3g} (tol {SAMPLER_LL_TOL})")
+    check(d <= SAMPLER_LL_TOL, "the replay disagrees with the sampler's ll")
+
+    # one rl_loss gradient, card against CPU
+    rng = np.random.default_rng(13)
+    batches = []
+    for role in (ROLE_AGENT, ROLE_BASF):
+        r = GraphSampler(f32_cfg, RL_ROWS, device=dev).sample(
+            model32, rl_generator(0, 2, role, dev), quiet=True)
+        with torch.inference_mode():
+            ll = trajectory_loglik(f32_cfg, model32,
+                                   torch.from_numpy(r.actions).to(dev),
+                                   torch.from_numpy(r.t_counts).to(dev))
+        target = (ll.cpu().numpy() - 5.0 + rng.normal(size=RL_ROWS)
+                  ).astype(np.float32)
+        mask = (rng.random(RL_ROWS) < 0.8).astype(np.float32)
+        batches.append((r.actions, r.t_counts, target, mask))
+    branches, flips = [], []
+    fused_enn.reset_launch_counts()
+    with selu_branches(record=branches):
+        gpu_loss, gpu = rl_gradients(f32_cfg, model32, batches, dev,
+                                     torch.float32)
+    check(sum(fused_enn.LAUNCHES.values()) == 0,
+          "the gradient replay launched the kernel")
+    with selu_branches(replay=branches, flips=flips):
+        cpu_loss, cpu = rl_gradients(f32_cfg, model32, batches,
+                                     torch.device("cpu"), torch.float32)
+    n_selu = sum(mask.numel() for mask in branches)
+    del branches
+    _, gpu64 = rl_gradients(f32_cfg, model32, batches, dev, torch.float64)
+    _, cpu64 = rl_gradients(f32_cfg, model32, batches, torch.device("cpu"),
+                            torch.float64)
+    dl = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
+    l2, mx, leaf = grad_errors(gpu, cpu, "rl_loss")
+    dev64 = grad_errors(gpu64, cpu64, "rl_loss")[0]
+    log(f"    rl_loss at B={RL_ROWS} (replays of "
+        f"{[int(b[1].max()) for b in batches]} steps), card vs CPU: f32 loss "
+        f"{gpu_loss:.6f} vs {cpu_loss:.6f} (rel {dl:.2g}, tol "
+        f"{STEP_LOSS_RTOL}); f32 gradient leaves on the card's SELU branches:"
+        f" worst relative L2 {l2:.2g} (tol {STEP_RTOL}), worst entry {mx:.2g}"
+        f" of its leaf's largest ({leaf}; tol {STEP_ENTRY_TOL}); {sum(flips)}"
+        f" of {n_selu} SELU pre-activations lie across 0 on the CPU; "
+        f"float64 gradient leaves: worst relative L2 {dev64:.2g} (tol "
+        f"{F64_DEVICE_TOL}); 0 kernel launches")
+    check(dl <= STEP_LOSS_RTOL, "rl_loss f32: card disagrees with the CPU")
+    check(l2 <= STEP_RTOL and mx <= STEP_ENTRY_TOL,
+          f"rl_loss f32 gradients: card disagrees with the CPU ({leaf})")
+    check(dev64 <= F64_DEVICE_TOL, f"rl_loss: float64 gradients on the card "
+          f"and the CPU differ by {dev64}")
+
+    # one learning step: the prior and the BASF stay as they were; the
+    # agent's kernel path still agrees with its plain path
+    ft_cfg = fine_tune_cfg(cfg, data, job, epochs=3, sample_every=100)
+
+    def tuner_in(name: str):
+        scratch = os.path.join(root, name)
+        os.makedirs(scratch)
+        wf = Workflow(ft_cfg.replace(job_dir=scratch + "/"))
+        return FineTuner(wf, load_trained(cfg, job, "bfloat16", epoch)[1], 3)
+
+    tuner = tuner_in("fine_tune_step")
+    before = {k: {n: v.clone() for n, v in getattr(tuner, k).state_dict()
+                  .items()} for k in ("prior", "basf", "agent")}
+    tuner.step(3)
+    for k, state in before.items():
+        same = all(torch.equal(v, state[n])
+                   for n, v in getattr(tuner, k).state_dict().items())
+        check(same == (k != "agent"), f"after a step the {k} "
+              f"{'moved' if k != 'agent' else 'did not move'}")
+    nodes_np, edges_np = synthetic_graphs(cfg, B, seed=4)
+    nodes = torch.from_numpy(nodes_np).to(dev, torch.bfloat16)
+    edges = torch.from_numpy(edges_np).to(dev, torch.bfloat16)
+    agent = tuner.agent
+    with torch.inference_mode():
+        fused = agent(nodes, edges).float()
+        plain = with_cfg(agent, ft_cfg.replace(fused_inference_enn=False),
+                         lambda: agent(nodes, edges).float())
+    err = (fused - plain).abs().max().item()
+    check(err <= LOGIT_TOL[torch.bfloat16],
+          f"the agent's logits after a step differ by {err}")
+    again = tuner_in("fine_tune_again")
+    again.step(3)
+    same = all(torch.equal(v, agent.state_dict()[n])
+               for n, v in again.agent.state_dict().items())
+    log(f"    one step: prior and BASF byte-equal to before, agent moved; "
+        f"agent's bf16 logits kernel path vs plain path {err:.4g} (tol "
+        f"{LOGIT_TOL[torch.bfloat16]}); the step from the same seed and "
+        f"checkpoint again: agent weights byte-equal {same}")
+    check(same, "two runs of one step left different agent weights")
+    return tuner
+
+
+def phase_fine_tune_timings(tuner) -> None:
+    from torch.autograd import DeviceType
+    from graphinvent_tpu_torch.rl.workflow_rl import (
+        ROLE_AGENT, ROLE_BASF, rl_loss,
+    )
+    log("[13c fine-tune step timings, bf16, B=1000]")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    start.record()
+    tuner.step(4)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    times = tuner.step_timings[-1]
+    log(f"    one step: {wall:.3f} s wall, {start.elapsed_time(end):.1f} ms "
+        "between CUDA events; " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in times.items()))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        tuner.step(5)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    if kernels:
+        busy = sum(e.self_device_time_total for e in kernels) / 1e6
+        log(f"    profiled step: wall {wall:.3f} s, device busy {busy:.3f} s "
+            f"({100 * busy / wall:.1f}%), {len(kernels)} kernel names")
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+            log(f"      {e.self_device_time_total / 1e3:9.3f} ms  "
+                f"{e.count:5d}x  {e.key[:70]}")
+    else:
+        log("    device busy share: not measured (no device events traced)")
+
+    # the gradient replay alone at rl_remat_segment 1 and 2
+    res = [tuner.rollout(m, 6, role) for m, role in
+           ((tuner.agent, ROLE_AGENT), (tuner.basf, ROLE_BASF))]
+    dev = tuner.device
+
+    def batch(r):
+        n = len(r.t_counts)
+        return (torch.from_numpy(r.actions).to(dev),
+                torch.from_numpy(r.t_counts).to(dev),
+                torch.full((n,), -20.0, device=dev),
+                torch.ones(n, device=dev))
+
+    for seg in (1, 2):
+        run_cfg = tuner.cfg.replace(rl_remat_segment=seg)
+        tuner.adam.zero_grad()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        marks[0].record()
+        loss = rl_loss(run_cfg, tuner.agent, batch(res[0]), batch(res[1]),
+                       run_cfg.alpha)
+        marks[1].record()
+        loss.backward()
+        marks[2].record()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        log(f"    gradient replay, rl_remat_segment={seg}: forward "
+            f"{marks[0].elapsed_time(marks[1]):.1f} ms, backward "
+            f"{marks[1].elapsed_time(marks[2]):.1f} ms (CUDA events; replays "
+            f"of {[int(r.t_counts.max()) for r in res]} steps), peak device "
+            f"memory above the model {peak:.0f} MiB")
+    tuner.adam.zero_grad()
+
+
+def phase_two_phase(fused_enn, cfg, root: str, data: dict,
+                    pretrained: tuple) -> dict:
+    from graphinvent_tpu_torch.sampling import GraphSampler
+    from graphinvent_tpu_torch.sampling.generator import (
+        _row_layout, batch_generator,
+    )
+    from graphinvent_tpu_torch.sampling.two_phase import TwoPhaseSampler
+    log(f"[13d two-phase generate job: n_samples=4000, "
+        f"gen_two_phase_rounds={TWO_PHASE_ROUNDS}, the fine-tune GGNN]")
+    job, epoch = pretrained
+    gjob = os.path.join(root, "two_phase")
+    os.makedirs(gjob)
+    shutil.copy(os.path.join(job, f"model_restart_{epoch}.pth"), gjob)
+    gen_cfg = cfg.replace(
+        job_type="generate", dataset_dir=data["dir"] + "/", n_samples=4000,
+        batch_size=B, generation_epoch=epoch,
+        gen_two_phase_rounds=TWO_PHASE_ROUNDS,
+        tensorboard_dir="", device="cuda", compute_dtype="bfloat16")
+    fused_enn.reset_launch_counts()
+    workflow, wall = run_job(gen_cfg, gjob)
+    stats = workflow.two_phase_stats
+    rounds = sum(s["rounds"] for s in stats)
+    launches = check_launches(fused_enn, gen_cfg, "two-phase generate job",
+                              rounds)
+    stragglers = sum(s["n_stragglers"] for s in stats)
+    check(stragglers > 0, f"two-phase stats: {stats}")
+    dev = torch.device("cuda")
+    run_cfg, model = load_trained(cfg, job, "bfloat16", epoch)
+    model.eval()
+    tp = TwoPhaseSampler(run_cfg, B, TWO_PHASE_ROUNDS, device=dev)
+    single = GraphSampler(run_cfg, B, device=dev)
+    off = _row_layout(run_cfg)
+    r0, d0 = off["rounds"][0], off["done"][0]
+    n_finished, counts = 0, []
+    for k in range(4):
+        gen = lambda: batch_generator(gen_cfg.seed, k, dev)
+        raw = tp.sample_packed(model, gen(), stop_round=TWO_PHASE_ROUNDS)
+        ref = single.sample_packed(model, gen())
+        finished = raw[:, d0] == 1
+        n_finished += int(finished.sum())
+        check(np.array_equal(raw[finished, :r0], ref[finished, :r0]),
+              f"batch {k}: rows finished in phase 1 differ from the "
+              "single-phase sampler's")
+        base = os.path.join(gjob, "generation", f"epoch_{epoch}_gen{k}")
+        smiles = open(base + ".smi").read().splitlines()[1:]
+        ll = np.loadtxt(base + ".likelihood")
+        check(len(smiles) == len(ll) == B and bool(np.isfinite(ll).all()),
+              f"two-phase job: {base} has {len(smiles)} SMILES")
+        ref_res = single._decode_packed(ref, 0.0, True)
+        counts.append(ref_res.t_counts)
+        want = ref_res.final_loglikelihoods
+        check(np.array_equal(ll[finished], np.array(
+            [float(f"{x:.6f}") for x in want[finished]])),
+            f"batch {k}: the job's likelihoods of rows finished in phase 1")
+    check(n_finished > 0, "no row finished in phase 1")
+    log(f"    job {wall:.2f} s: {stragglers} stragglers of {gen_cfg.n_samples} in "
+        f"{sum(s['n_continuation'] for s in stats)} continuation batches, "
+        f"{rounds} rounds in all, {sum(launches.values())} kernel launches; "
+        f"{n_finished} rows finished in phase 1, each byte-equal to the "
+        "single-phase sampler's row; actions a row in the single-phase "
+        f"batches: median {np.median(np.concatenate(counts)):g}, max "
+        f"{np.concatenate(counts).max()}")
+    return launches
+
+
 def main() -> None:
     # the port first: without the repo around it, fail before any output
     from graphinvent_tpu_torch.config import preset
@@ -1452,11 +1993,23 @@ def main() -> None:
         model_jobs, jobs = phase_model_jobs(fused_enn, models, root, data)
         phase_model_numerics(fused_enn, models, jobs, data)
         phase_model_timings(fused_enn, models, jobs, data)
-    groups = [("GGNN", main_path_sites(model), errs, by_job)]
-    groups += [(tag, main_path_sites(models[tag][1]), model_errs[tag],
-                model_jobs[tag]) for tag in ("AttGGNN", "EMN", "EMN dense")]
-    rows = phase_timings(fused_enn, groups)
-    print(json.dumps({"kernels": rows}), flush=True)
+        groups = [("GGNN", main_path_sites(model), errs, by_job)]
+        groups += [(tag, main_path_sites(models[tag][1]), model_errs[tag],
+                    model_jobs[tag]) for tag in ("AttGGNN", "EMN",
+                                                 "EMN dense")]
+        timed = phase_timings(fused_enn, groups)
+        pretrained = phase_pretrained(cfg, models, root, job, jobs)
+        fine_tune = phase_fine_tune(fused_enn, cfg, models, root, data,
+                                    pretrained)
+        by_job["fine-tune"] = fine_tune["GGNN"]
+        for name in ("AttGGNN", "EMN"):
+            model_jobs[name]["fine-tune"] = fine_tune[name]
+        tuner = phase_fine_tune_numerics(fused_enn, cfg, root, data,
+                                         pretrained["GGNN"])
+        phase_fine_tune_timings(tuner)
+        by_job["two-phase generate"] = phase_two_phase(
+            fused_enn, cfg, root, data, pretrained["GGNN"])
+    print(json.dumps({"kernels": kernel_rows(timed)}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
 
 

@@ -2,7 +2,8 @@
 
 The same single-flag interface as ``graphinvent_tpu.main`` (reference
 graphinvent/main.py:23-72): the job directory may hold an ``input.csv``
-overriding any config field, including ``job_type`` and ``device``
+overriding any config field, including ``job_type`` (``preprocess``,
+``train``, ``generate``, ``test`` or ``fine-tune``) and ``device``
 (``cuda``, the default, or ``cpu``).
 """
 
@@ -20,7 +21,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Workflow:
     parser.add_argument("--job-dir", default="./output/",
                         help="Job directory (may contain input.csv).")
     parser.add_argument("--job-type", default=None,
-                        help="Override job_type from input.csv.")
+                        help="Override job_type from input.csv: preprocess, "
+                        "train, generate, test or fine-tune.")
     parser.add_argument("--dataset-dir", default=None)
     parser.add_argument("--model", default=None)
     args = parser.parse_args(argv)

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -55,7 +55,8 @@ class SampleResult:
 
 
 # what a generator is for: the fourth entry of its seed sequence
-STREAM_GENERATE, STREAM_EVALUATE, STREAM_DROPOUT, STREAM_TEST = range(4)
+(STREAM_GENERATE, STREAM_EVALUATE, STREAM_DROPOUT, STREAM_TEST,
+ STREAM_FINE_TUNE, STREAM_CONTINUATION) = range(6)
 
 
 def seeded_generator(entropy: Sequence[int], device: torch.device,
@@ -86,22 +87,38 @@ def batch_generator(seed: int, batch_idx: int, device: torch.device
 
 def _sample_loop(cfg: GraphInventConfig, params: Params,
                  generator: torch.Generator, batch_size: int,
-                 apply_fn: Callable, device: torch.device
+                 apply_fn: Callable, device: torch.device,
+                 stop_round: Optional[int] = None,
+                 init_state: Optional[Dict[str, torch.Tensor]] = None
                  ) -> Tuple[torch.Tensor, ...]:
+    """``stop_round`` / ``init_state`` are the two-phase sampler's hooks
+    (``sampling/two_phase.py``): phase 1 stops after ``stop_round`` rounds
+    (rows still live then come back with done=0); the continuation starts
+    the same loop from ``init_state``, the carried state of a batch of such
+    rows (nodes, edges, n_nodes, t, ll, acts, done, term), with rounds
+    counted from 0 again.  A carried row's actions are drawn from the same
+    distribution as in one uninterrupted loop."""
     B = batch_size
     N, Fn, E = cfg.max_n_nodes, cfg.n_node_features, cfg.n_edge_features
     L = cfg.gen_action_budget
     max_rounds = L + 4
+    if stop_round is not None:
+        max_rounds = min(max_rounds, stop_round)
     dt = compute_dtype(cfg)
 
-    nodes = torch.zeros(B, N, Fn, dtype=dt, device=device)
-    edges = torch.zeros(B, N, N, E, dtype=dt, device=device)
-    n_nodes = torch.zeros(B, dtype=torch.long, device=device)
-    t = torch.zeros(B, dtype=torch.long, device=device)    # actions taken
-    ll = torch.zeros(B, L, dtype=torch.float32, device=device)
-    acts = torch.zeros(B, L, dtype=torch.long, device=device)
-    done = torch.zeros(B, dtype=torch.bool, device=device)
-    term = torch.zeros(B, dtype=torch.bool, device=device)
+    state = dict(
+        nodes=torch.zeros(B, N, Fn, dtype=dt, device=device),
+        edges=torch.zeros(B, N, N, E, dtype=dt, device=device),
+        n_nodes=torch.zeros(B, dtype=torch.long, device=device),
+        t=torch.zeros(B, dtype=torch.long, device=device),  # actions taken
+        ll=torch.zeros(B, L, dtype=torch.float32, device=device),
+        acts=torch.zeros(B, L, dtype=torch.long, device=device),
+        done=torch.zeros(B, dtype=torch.bool, device=device),
+        term=torch.zeros(B, dtype=torch.bool, device=device))
+    if init_state is not None:
+        state.update({k: v.to(device, state[k].dtype, copy=True)
+                      for k, v in init_state.items()})
+    nodes, edges, n_nodes, t, ll, acts, done, term = state.values()
     rounds = 0
 
     while rounds < max_rounds and not bool(done.all()):
@@ -171,6 +188,30 @@ def _pack_outputs(nodes, edges, n_nodes, ll, acts, term, done, t, rounds
     ], dim=1)
 
 
+def _row_layout(cfg: GraphInventConfig) -> Dict[str, Tuple[int, int]]:
+    """Byte ranges of the fields of a packed row (``_pack_outputs``), and
+    its length under ``row_bytes``."""
+    N, Fn, E = cfg.max_n_nodes, cfg.n_node_features, cfg.n_edge_features
+    L = cfg.gen_action_budget
+    off: Dict = {}
+    o = 0
+    for name, width in (("nodes", (N * Fn + 7) // 8),
+                        ("edges", (N * N * E + 7) // 8), ("n_nodes", 1),
+                        ("term", 1), ("done", 1), ("t_lo", 1), ("t_hi", 1),
+                        ("acts_lo", L), ("acts_hi", L), ("ll", 4 * L),
+                        ("rounds", 2)):
+        off[name] = (o, o + width)
+        o += width
+    off["row_bytes"] = o
+    return off
+
+
+def _packed_rounds(cfg: GraphInventConfig, packed: np.ndarray) -> int:
+    """The rounds a packed batch ran (a field every row carries)."""
+    lo, hi = packed[0, slice(*_row_layout(cfg)["rounds"])]
+    return int(lo) | (int(hi) << 8)
+
+
 class GraphSampler:
     """Batched on-device sampler (reference: GraphGenerator.sample,
     GraphGenerator.py:48-96)."""
@@ -187,13 +228,17 @@ class GraphSampler:
         self.apply_fn = apply_fn or (lambda model, nodes, edges:
                                      model(nodes, edges))
 
-    def sample_packed(self, params: Params, generator: torch.Generator
+    def sample_packed(self, params: Params, generator: torch.Generator,
+                      stop_round: Optional[int] = None,
+                      init_state: Optional[Dict[str, torch.Tensor]] = None
                       ) -> np.ndarray:
-        """Runs one batch; returns the packed buffer on the host."""
+        """Runs one batch; returns the packed buffer on the host.
+        ``stop_round`` / ``init_state``: the two-phase sampler's hooks
+        (``_sample_loop``)."""
         with torch.inference_mode():
             packed = _pack_outputs(*_sample_loop(
                 self.cfg, params, generator, self.batch_size, self.apply_fn,
-                self.device))
+                self.device, stop_round=stop_round, init_state=init_state))
             return packed.cpu().numpy()                 # single transfer
 
     def sample(self, params: Params, generator: torch.Generator,
@@ -209,30 +254,27 @@ class GraphSampler:
         N, Fn, E = cfg.max_n_nodes, cfg.n_node_features, cfg.n_edge_features
         L = cfg.gen_action_budget
 
-        o = 0
+        off = _row_layout(cfg)
 
-        def take(n):
-            nonlocal o
-            out = packed[:, o:o + n]
-            o += n
-            return out
+        def field(k):
+            return packed[:, off[k][0]:off[k][1]]
 
-        def take_bits(n):
-            return np.unpackbits(np.ascontiguousarray(take((n + 7) // 8)),
-                                 axis=1, count=n)
-        nodes = take_bits(N * Fn).reshape(B, N, Fn).astype(np.float32)
-        edges = take_bits(N * N * E).reshape(B, N, N, E).astype(np.float32)
-        n_nodes = take(1)[:, 0].astype(np.int32)
-        term = take(1)[:, 0].astype(np.int8)
-        done = take(1)[:, 0].astype(np.int8)
-        t_lo = take(1)[:, 0].astype(np.uint16)
-        t_hi = take(1)[:, 0].astype(np.uint16)
-        t_count = (t_lo | (t_hi << 8)).astype(np.int32)
-        acts_lo = take(L).astype(np.uint16)
-        acts_hi = take(L).astype(np.uint16)
-        acts = (acts_lo | (acts_hi << 8)).astype(np.int32)
-        ll = np.ascontiguousarray(take(L * 4)).view(np.float32).reshape(B, L)
-        rounds = int(take(1)[0, 0]) | (int(take(1)[0, 0]) << 8)
+        def bits(k, n):
+            return np.unpackbits(np.ascontiguousarray(field(k)), axis=1,
+                                 count=n)
+
+        def lo_hi(lo, hi):
+            return (field(lo).astype(np.uint16)
+                    | (field(hi).astype(np.uint16) << 8)).astype(np.int32)
+        nodes = bits("nodes", N * Fn).reshape(B, N, Fn).astype(np.float32)
+        edges = bits("edges", N * N * E).reshape(B, N, N, E).astype(np.float32)
+        n_nodes = field("n_nodes")[:, 0].astype(np.int32)
+        term = field("term")[:, 0].astype(np.int8)
+        done = field("done")[:, 0].astype(np.int8)
+        t_count = lo_hi("t_lo", "t_hi")[:, 0]
+        acts = lo_hi("acts_lo", "acts_hi")
+        ll = np.ascontiguousarray(field("ll")).view(np.float32).reshape(B, L)
+        rounds = _packed_rounds(cfg, packed)
 
         graphs = [MolGraph(cfg, nodes[i], edges[i], int(n_nodes[i]))
                   for i in range(B)]

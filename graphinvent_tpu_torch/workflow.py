@@ -1,10 +1,10 @@
 """Job orchestration for the PyTorch port.
 
 Counterpart of ``graphinvent_tpu/workflow.py`` (reference Workflow.py).
-The port runs ``preprocess``, ``train``, ``generate`` and ``test`` for all
-six models in one process on one device; ``fine-tune`` raises
-``NotImplementedError`` until its slice lands (ROADMAP.md, queue A), as do
-multi-process runs and the two-phase sampler.
+The port runs all five job types, ``preprocess``, ``train``, ``generate``,
+``test`` and ``fine-tune`` (``rl/workflow_rl.py``), for all six models in
+one process on one device; multi-process runs raise
+``NotImplementedError`` (ROADMAP.md, queue A).
 
 Training state is explicit: the model (float32 master weights on the
 device) and a ``train.optim.Adam`` (step count and both moments), both
@@ -33,10 +33,13 @@ from graphinvent_tpu_torch.data.preprocess import preprocess_dataset
 from graphinvent_tpu_torch.eval.analyzer import Analyzer
 from graphinvent_tpu_torch.eval.properties import load_ts_properties_csv
 from graphinvent_tpu_torch.models import build_model
-from graphinvent_tpu_torch.sampling import GraphSampler
+from graphinvent_tpu_torch.sampling import GraphSampler, SampleResult
 from graphinvent_tpu_torch.sampling.generator import (
     STREAM_DROPOUT, STREAM_EVALUATE, STREAM_TEST, batch_generator,
     seeded_generator,
+)
+from graphinvent_tpu_torch.sampling.two_phase import (
+    TwoPhaseSampler, window_generator,
 )
 from graphinvent_tpu_torch.train.device_data import (
     DeviceDataset, epoch_permutation, make_epoch_eval_fn, make_epoch_nll_fn,
@@ -195,6 +198,7 @@ class Workflow:
         # (rounds, seconds) of each sampled batch, for callers that report
         # throughput
         self.batch_stats: List[Tuple[int, float]] = []
+        self.two_phase_stats: List[Dict[str, float]] = []
         self._samplers: Dict[int, GraphSampler] = {}
 
     def _get_sampler(self, batch_size: int) -> GraphSampler:
@@ -222,11 +226,11 @@ class Workflow:
             self.generation_phase()
         elif job == "test":
             self.testing_phase()
+        elif job == "fine-tune":
+            from graphinvent_tpu_torch.rl.workflow_rl import learning_phase
+            self.fine_tuner = learning_phase(self)
         else:
-            raise NotImplementedError(
-                f"job type {job!r} is not ported to PyTorch yet; the port "
-                f"runs 'preprocess', 'train', 'generate' and 'test' (see "
-                f"ROADMAP.md, queue A)")
+            raise ValueError(f"invalid job_type {job!r}")
         elapsed = time.time() - self.start_time
         print(f"-- time elapsed: {elapsed:.5f} s", flush=True)
 
@@ -477,14 +481,11 @@ class Workflow:
         model, epoch = self._load_model_for_inference(cfg.generation_epoch)
         batch = min(cfg.batch_size, cfg.n_samples)
         n_batches = (cfg.n_samples + batch - 1) // batch
-        sampler = self._get_sampler(batch)
         analyzer = Analyzer(cfg, self.logger, self._load_ts_properties(),
                             self.start_time)
         pending = None
         with ThreadPoolExecutor(max_workers=1) as pool:
-            for k in range(n_batches):
-                res = sampler.sample(
-                    model, batch_generator(cfg.seed, k, self.device))
+            for k, res in self._generated_batches(model, batch, n_batches):
                 self.batch_stats.append((res.n_rounds, res.elapsed_s))
                 if pending is not None:
                     pending.result()
@@ -496,6 +497,32 @@ class Workflow:
                     write=True, plot=(k == 0))
             if pending is not None:
                 pending.result()
+
+    def _generated_batches(self, model: nn.Module, batch: int,
+                           n_batches: int
+                           ) -> Iterator[Tuple[int, SampleResult]]:
+        """(k, batch k) of the generate job: one sampler batch each, or with
+        ``gen_two_phase_rounds`` > 0 the two-phase sampler over windows of
+        4 batches, whose stragglers are continued together (the stats of
+        each window go to ``self.two_phase_stats``)."""
+        cfg = self.cfg
+        if cfg.gen_two_phase_rounds <= 0:
+            sampler = self._get_sampler(batch)
+            for k in range(n_batches):
+                yield k, sampler.sample(
+                    model, batch_generator(cfg.seed, k, self.device))
+            return
+        sampler = TwoPhaseSampler(cfg, batch, cfg.gen_two_phase_rounds,
+                                  device=self.device)
+        window = 4
+        for start in range(0, n_batches, window):
+            n = min(window, n_batches - start)
+            results, stats = sampler.sample_many(
+                model, window_generator(cfg.seed, start, n, self.device), n,
+                quiet=False)
+            self.two_phase_stats.append(stats)
+            for j, res in enumerate(results):
+                yield start + j, res
 
     # ------------------------------------------------------------------
     def testing_phase(self) -> None:

@@ -35,3 +35,24 @@ def towers_from_jax(params):
 
 def to_np(t):
     return t.detach().float().cpu().numpy()
+
+
+def bias_head(cfg, params, add_nodes=1, add=6.0, term=8.0):
+    """Raises, in a JAX ``init_model`` pytree of numpy arrays, the logits of
+    "add an atom to node 0 .. add_nodes-1" and of "terminate": an
+    untrained head almost never picks a valid first action, and with this
+    one graphs grow for several rounds.  Returns ``params``."""
+    head = params["apd"]
+    head["f_add_2"]["layers"][-1]["b"][
+        :add_nodes * cfg.len_f_add_per_node] += add
+    head["f_term_2"]["layers"][-1]["b"][:] += term
+    return params
+
+
+def jax_init(cfg, seed):
+    """The JAX package's ``init_model`` params for ``cfg`` from
+    ``PRNGKey(seed)``, as (writable) numpy arrays."""
+    import jax
+    from graphinvent_tpu.models import init_model
+    return jax.tree_util.tree_map(
+        np.array, init_model(cfg, jax.random.PRNGKey(seed)))

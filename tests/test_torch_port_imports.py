@@ -16,7 +16,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "graphinvent_tpu")
 
 def _sources():
     out = [os.path.join(ROOT, name) for name in
-           ("chip_smoke.py", "probe_fused_enn.py", "probe_grad_numerics.py")]
+           ("chip_smoke.py", "probe_fused_enn.py", "probe_grad_numerics.py",
+            "probe_rl_numerics.py")]
     for d, _, files in os.walk(PKG):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(os.path.relpath(p, ROOT) for p in out)
@@ -33,7 +34,7 @@ def _imported(path):
 
 def test_every_sub_package_is_covered():
     dirs = {os.path.dirname(p) for p in _sources()}
-    for sub in ("chem", "data", "eval", "models", "sampling", "train",
+    for sub in ("chem", "data", "eval", "models", "rl", "sampling", "train",
                 "utils"):
         assert os.path.join("graphinvent_tpu_torch", sub) in dirs, sub
     # h5py is imported by the storage module alone, and only inside calls

@@ -110,14 +110,15 @@ def test_cpu_device_is_the_cpu():
 @pytest.mark.parametrize("job_type", ["preprocess", "train", "test",
                                       "fine-tune"])
 def test_other_job_types_are_not_ported_yet(tmp_path, job_type):
-    """``fine-tune`` is the one job type still to be ported; the other
-    three are dispatched (here they get as far as the missing dataset)."""
+    """Every job type is dispatched: here each gets as far as its missing
+    input (the dataset; for ``fine-tune`` the pre-trained model)."""
     # a score valid at max_n_nodes=13, which a fine-tune config requires
     job, _ = _job_dir(tmp_path, score_components=("target_size=10",),
-                      score_thresholds=(0.0,))
+                      score_thresholds=(0.0,),
+                      pretrained_model_dir=str(tmp_path / "none") + "/")
     argv = ["--job-dir", job, "--job-type", job_type]
     if job_type == "fine-tune":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        with pytest.raises(FileNotFoundError, match="pre-trained"):
             port_main(argv)
     elif job_type == "preprocess":
         port_main(argv)         # no .smi files: only the params snapshot
