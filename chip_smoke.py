@@ -111,7 +111,28 @@ Phases (any failure raises and the script exits non-zero):
      launches a round), a train job restarted for one epoch with its
      evaluation (per-step losses, convergence.log and weights equal to a
      restart from the ``.pth`` and its sidecar) and a fine-tune step whose
-     ``pretrained_model_dir`` holds only the ``.ckpt``.
+     ``pretrained_model_dir`` holds only the ``.ckpt``;
+  15a. the MOSES benchmarking flow at ChEMBL-proxy width (N=40, aromatic
+     bonds, E=4) through ``tools/campaign_chembl`` in process: 1,500 seeded
+     SMILES of 25-40 atoms, 2 preprocess shards as processes and their
+     combine, a GGNN train job (preset widths, bf16, B=1000, 1 epoch with
+     its evaluation), 4,000 generated, the test job and the MOSES score;
+     10 launches a forward in every job; then the kernel against its plain
+     version at every N=40 launch shape (phase 3's bars) and phase 6's
+     timings there (the kernels line gains these rows);
+  15b. MOSES on the card: IntDiv of 30,000 seeded fingerprints at the
+     density of 15a's training molecules, timed; 4,000 of them against the
+     CPU (integer counts equal, IntDiv within 1e-6); ``compute_metrics``
+     with 8 worker processes twice in this process, after CUDA init;
+  15c. ``tools/roofline`` rows (mfu, sol_fraction, bound, with the card's
+     name and power limit) of the train step and the sampler round at
+     N=13 (phase 7's data, phase 8's model) and N=40 (15a's);
+  15d. ``tools/ab_two_phase`` on phase 13's raised GGNN at N=13, cap
+     TWO_PHASE_ROUNDS, 4 batches: molecules/s both ways;
+  15e. ``tools/train_qsar`` (logistic, on the card) on stand-in labels
+     ("has a ring") of phase 7's SMILES, then one fine-tune step through
+     ``main`` scored by that model with QED (10 launches a rollout round
+     and a forward-only replay step, none in the gradient replay).
 
 Each phase's header line carries the seconds since the script started.
 The second-to-last line is {"kernels": [...]}, the last line
@@ -136,10 +157,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-# H100 SXM data sheet: dense bf16 tensor-core and HBM3 rates
-PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
+from graphinvent_tpu_torch.utils.device import (
+    PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_F32_FLOPS,
+)
+
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1.0 / 64}
 LOGIT_TOL = {torch.bfloat16: 0.15, torch.float32: 2e-3}
 REPLACES = "graphinvent_tpu/models/fused_enn.py:98"
@@ -196,8 +217,10 @@ def ptxas_report(build_log: str) -> list:
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            name = next((k for k in ("wgmma_kernelILi64", "wgmma_kernelILi128",
-                                     "f32_kernel") if k in mangled), mangled)
+            name = next((k for k in ("wgmma_kernelILi64ELb0",
+                                     "wgmma_kernelILi64ELb1",
+                                     "wgmma_kernelILi128", "f32_kernel")
+                         if k in mangled), mangled)
         elif "spill" in line:
             spill = line.strip()
         elif "registers" in line and name:
@@ -258,10 +281,11 @@ def emn_is_packed(cfg) -> bool:
 
 def main_path_sites(model) -> list:
     """Every launch shape of the kernel in one grad-free forward of
-    ``model`` at B x N."""
+    ``model`` at B x its config's max_n_nodes."""
     from graphinvent_tpu_torch.models import mpnn
     cfg = model.cfg
     passes = cfg.message_passes
+    N = cfg.max_n_nodes
     R1, H = B * N, cfg.hidden_node_features
     one = lambda name, mlp_, rows, width: Site(
         name, "fused_mlp", [[mlp_]], rows, width,
@@ -1135,11 +1159,13 @@ def bound(flat, R: int, dt) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_timings(fused_enn, groups) -> list:
+def phase_timings(fused_enn, groups,
+                  header: str = "[6 timings, bf16, CUDA events, warm L2]"
+                  ) -> list:
     """``groups``: per model (tag, its sites, bf16 errors by site, launch
     counts by job and weight layout) -> the timed sites, for
     :func:`kernel_rows` once every job has run."""
-    log("[6 timings, bf16, CUDA events, warm L2]")
+    log(header)
     dt = torch.bfloat16
     timed = []
     for tag, sites, errs, by_job in groups:
@@ -2313,6 +2339,311 @@ def phase_checkpoints(fused_enn, cfg, root: str, data: dict, job: str
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 15: the MOSES benchmarking flow at ChEMBL-proxy width (N=40, E=4),
+# and the port's tools
+# --------------------------------------------------------------------------
+
+CAMPAIGN_ARGS = ["--n", "1500", "--min-atoms", "25", "--max-atoms", "40",
+                 "--seed", "0", "--shards", "2", "--epochs", "1",
+                 "--sample-every", "1", "--batch-size", str(B),
+                 "--n-generate", "4000", "--device", "cuda",
+                 "--in-process", "--set", "tensorboard_dir="]
+INTDIV_ROWS = 30000        # MOSES's generated set
+INTDIV_CHECK_ROWS = 4000   # held against the CPU
+INTDIV_TOL = 1e-6
+MOSES_JOBS = 8
+AB_BATCHES = 4
+
+
+def timed_stage(campaign, args, stage: str):
+    """(result, wall seconds) of one campaign stage, the device synced."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = campaign.run_stage(args, stage)
+    torch.cuda.synchronize()
+    return out, time.time() - t0
+
+
+def nll_batches(rows: int, n_samples: int) -> int:
+    """NLL batches of an evaluation over ``min(rows, n_samples)`` random
+    rows (``max_rows`` of ``evaluate_model`` and ``testing_phase``)."""
+    return n_batches(min(rows, min(100000, n_samples)))
+
+
+def phase_campaign(fused_enn, root: str) -> dict:
+    """15a: ``tools/campaign_chembl`` on the card; -> its config, data,
+    checkpoint and launch counts by job."""
+    from graphinvent_tpu_torch.data import HDFDataset, store
+    from graphinvent_tpu_torch.tools import campaign_chembl as campaign
+    log("[15a the ChEMBL-proxy campaign (N=40, E=4): 1,500 SMILES of 25-40 "
+        "atoms, 2 preprocess shards, GGNN bf16 B=1000 1 epoch, 4,000 "
+        "generated, test, score]")
+    t_start = time.time()
+    args = campaign.parse_args(["--root", os.path.join(root, "chembl40"),
+                                *CAMPAIGN_ARGS])
+    data_dir = os.path.join(args.root, "data")
+    secs = {}
+    _, secs["data"] = timed_stage(campaign, args, "data")
+    _, secs["preprocess"] = timed_stage(campaign, args, "preprocess")
+    rows = {}
+    for name in ("train", "valid", "test"):
+        ds = HDFDataset(store.find_dataset(os.path.join(data_dir, name)))
+        rows[name] = len(ds)
+        backend = ds.backend
+        ds.close()
+    smiles = {name: len(open(os.path.join(data_dir, name + ".smi"))
+                        .read().splitlines()) - 1
+              for name in ("train", "valid", "test")}
+    log(f"    data {secs['data']:.2f} s: molecules {smiles}; preprocess "
+        f"(2 shard processes + combine, {backend} back end) "
+        f"{secs['preprocess']:.2f} s: rows {rows}")
+
+    by_job = {}
+    fused_enn.reset_launch_counts()
+    wf, secs["train"] = timed_stage(campaign, args, "train")
+    cfg40 = wf.cfg
+    check(cfg40.max_n_nodes == 40 and cfg40.n_edge_features == 4,
+          f"campaign config N={cfg40.max_n_nodes} E={cfg40.n_edge_features}")
+    check(wf.data_path == "resident", f"train took {wf.data_path}")
+    rounds = sum(r for r, _ in wf.batch_stats)
+    forwards = (n_batches(rows["valid"]) + rounds
+                + nll_batches(rows["valid"], cfg40.n_samples)
+                + nll_batches(rows["train"], cfg40.n_samples))
+    by_job["campaign train"] = check_launches(fused_enn, cfg40,
+                                              "campaign train job", forwards)
+    conv = read_convergence(wf.cfg.job_dir)
+    check(len(conv) == 1 and all(math.isfinite(x) for x in conv[0]),
+          f"campaign convergence.log: {conv}")
+    log(f"    train {secs['train']:.2f} s: {n_batches(rows['train'])} steps, "
+        f"train loss {conv[0][2]:.4f}, valid {conv[0][3]:.4f}, UC-JSD "
+        f"{conv[0][4]:.4f}; {rounds} sampler rounds, "
+        f"{sum(by_job['campaign train'].values())} kernel launches "
+        f"(10 x {forwards} forwards)")
+
+    fused_enn.reset_launch_counts()
+    wf, secs["generate"] = timed_stage(campaign, args, "generate")
+    rounds = [r for r, _ in wf.batch_stats]
+    by_job["campaign generate"] = check_launches(
+        fused_enn, cfg40, "campaign generate job", sum(rounds))
+    sample_s = sum(s for _, s in wf.batch_stats)
+    log(f"    generate {secs['generate']:.2f} s: rounds per batch {rounds}, "
+        f"sampler {4000 / sample_s:.1f} molecules/s "
+        f"({1e3 * sample_s / sum(rounds):.3f} ms a round), "
+        f"{sum(by_job['campaign generate'].values())} kernel launches")
+
+    fused_enn.reset_launch_counts()
+    wf, secs["test"] = timed_stage(campaign, args, "test")
+    rounds = sum(r for r, _ in wf.batch_stats)
+    forwards = (rounds + nll_batches(rows["test"], wf.cfg.n_samples)
+                + nll_batches(rows["train"], wf.cfg.n_samples))
+    by_job["campaign test"] = check_launches(fused_enn, cfg40,
+                                             "campaign test job", forwards)
+    scores = read_validation(wf.cfg.job_dir)
+    check("Test 1" in scores and all(math.isfinite(x)
+                                     for x in scores["Test 1"]),
+          f"campaign validation.log: {scores}")
+    log(f"    test {secs['test']:.2f} s: {rounds} rounds + NLL batches, "
+        f"{sum(by_job['campaign test'].values())} kernel launches; Test 1 "
+        f"{[round(x, 4) for x in scores['Test 1']]}")
+
+    metrics, secs["score"] = timed_stage(campaign, args, "score")
+    for key in ("validity", "uniqueness", "novelty", "int_div_1",
+                "int_div_2", "pass_filters"):
+        check(metrics[key] is not None and 0.0 <= metrics[key] <= 1.0,
+              f"MOSES {key}: {metrics[key]}")
+    check(metrics["n_generated"] == 4000, f"scored {metrics['n_generated']}")
+    log(f"    score {secs['score']:.2f} s (MOSES suite, {MOSES_JOBS} worker "
+        f"processes, IntDiv on the card): {json.dumps(metrics)}")
+    log(f"    15a took {time.time() - t_start:.1f} s: "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items()))
+    return {"args": args, "cfg": cfg40, "data": data_dir, "rows": rows,
+            "job": campaign.train_dir(args),
+            "by_job": by_job}
+
+
+def phase_campaign_kernels(fused_enn, camp: dict) -> list:
+    """The kernel against its plain version at every N=40 launch shape
+    (phase 3's bars), then phase 6's timings there; -> the timed rows."""
+    from graphinvent_tpu_torch.utils.weights import (
+        checkpoint_path, load_checkpoint,
+    )
+    log("[15a kernel vs plain at every N=40 launch shape]")
+    cfg40 = camp["cfg"]
+    model = load_checkpoint(cfg40, checkpoint_path(camp["job"], 1)).to(
+        "cuda").eval()
+    sites = [site._replace(name="N=40 " + site.name)
+             for site in main_path_sites(model)]
+    check(sum(s.per_forward for s in sites) == per_forward(cfg40),
+          "N=40 sites do not add up to per_forward")
+    layouts = [fused_enn.flatten_weights(
+        fused_enn.stacked_layers(s.owners[0]), torch.bfloat16, "cuda").layout
+        for s in sites]
+    check(len(set(layouts)) == len(layouts),
+          "two N=40 sites share a weight layout: launches would mix")
+    errs = sites_check(fused_enn, sites)
+    return phase_timings(fused_enn, [("GGNN N=40", sites, errs,
+                                      camp["by_job"])],
+                         "[15a timings at N=40, bf16, CUDA events, warm L2]")
+
+
+def phase_moses(camp: dict) -> None:
+    """15b: IntDiv of 30,000 seeded fingerprints on the card; 4,000 of
+    them against the CPU; the whole suite twice in this process."""
+    from graphinvent_tpu_torch.chem import mol_from_smiles
+    from graphinvent_tpu_torch.chem.fingerprint import bulk_fingerprints
+    from graphinvent_tpu_torch.eval import moses
+    log(f"[15b MOSES on the card: IntDiv of {INTDIV_ROWS} fingerprints, "
+        f"{INTDIV_CHECK_ROWS} against the CPU, compute_metrics(n_jobs="
+        f"{MOSES_JOBS}) twice]")
+    t_start = time.time()
+    train = moses.read_smi(os.path.join(camp["data"], "train.smi"))
+    density = float(bulk_fingerprints([mol_from_smiles(s)
+                                       for s in train[:300]]).mean())
+    rng = np.random.default_rng(0)
+    fps = (rng.random((INTDIV_ROWS, 2048), dtype=np.float32)
+           < density).astype(np.float32)
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        got = moses.internal_diversity_both(fps, device="cuda")
+        runs.append(time.time() - t0)
+    flops = 2.0 * INTDIV_ROWS * INTDIV_ROWS * 2048
+    log(f"    {INTDIV_ROWS} x 2048 fingerprints at density {density:.4f} "
+        f"(the Morgan bits of 300 of 15a's training SMILES): IntDiv "
+        f"{got[0]:.6f} / {got[1]:.6f} in {runs[0]:.3f} s (first call) and "
+        f"{runs[1]:.3f} s; the Gram product alone is {flops / 1e12:.2f} "
+        f"TFLOP, {flops / PEAK_F32_FLOPS:.3f} s at the float32 peak")
+
+    sub = fps[:INTDIV_CHECK_ROWS]
+    f_gpu = torch.from_numpy(sub).to("cuda")
+    f_cpu = torch.from_numpy(sub)
+    for start in range(0, INTDIV_CHECK_ROWS, 2048):
+        a = moses.intersection_counts(f_gpu, start, start + 2048).cpu()
+        b = moses.intersection_counts(f_cpu, start, start + 2048)
+        check(torch.equal(a, b) and torch.equal(a, a.round()),
+              f"intersection counts of rows {start}.. differ card vs CPU")
+    t0 = time.time()
+    on_cpu = moses.internal_diversity_both(sub, device="cpu")
+    cpu_s = time.time() - t0
+    on_gpu = moses.internal_diversity_both(sub, device="cuda")
+    err = max(abs(x - y) for x, y in zip(on_gpu, on_cpu))
+    log(f"    {INTDIV_CHECK_ROWS} rows: integer counts equal card vs CPU "
+        f"(max count {int(b.max())}); IntDiv card {on_gpu} CPU {on_cpu} "
+        f"(CPU {cpu_s:.2f} s), max diff {err:.3g} (tol {INTDIV_TOL})")
+    check(err <= INTDIV_TOL, f"IntDiv card vs CPU differ by {err}")
+
+    gen_files = sorted(
+        os.path.join(camp["job"], "generation", f)
+        for f in os.listdir(os.path.join(camp["job"], "generation"))
+        if f.startswith("epoch_1_gen") and f.endswith(".smi"))
+    gen = [s for p in gen_files for s in moses.read_smi(p)]
+    test = moses.read_smi(os.path.join(camp["data"], "test.smi"))
+    results = []
+    for k in range(2):
+        t0 = time.time()
+        results.append(moses.compute_metrics(gen, train, test,
+                                             n_jobs=MOSES_JOBS,
+                                             device="cuda"))
+        log(f"    compute_metrics(n_jobs={MOSES_JOBS}) run {k + 1}: "
+            f"{time.time() - t0:.2f} s for {len(gen)} generated, "
+            f"{len(train)} train, {len(test)} test")
+    check(json.dumps(results[0]) == json.dumps(results[1]),
+          "two MOSES runs in one process differ")
+    log(f"    15b took {time.time() - t_start:.1f} s")
+
+
+def phase_roofline(cfg, data: dict, job: str, camp: dict) -> None:
+    """15c: the roofline rows of the train step and the sampler round at
+    N=13 (phase 7's data, phase 8's model) and N=40 (15a's)."""
+    from graphinvent_tpu_torch.tools import roofline
+    from graphinvent_tpu_torch.tools.common import dataset_rows
+    from graphinvent_tpu_torch.utils.weights import (
+        checkpoint_path, load_checkpoint,
+    )
+    log("[15c roofline: train step and sampler round, bf16, B=1000, N=13 "
+        "and N=40]")
+    t_start = time.time()
+    for tag, run_cfg, data_dir, ckpt in (
+            ("N=13", cfg.replace(batch_size=B, compute_dtype="bfloat16",
+                                 device="cuda"),
+             data["dir"], checkpoint_path(job, 2)),
+            ("N=40", camp["cfg"], camp["data"],
+             checkpoint_path(camp["job"], 1))):
+        rows = dataset_rows(run_cfg, data_dir, B)
+        step = roofline.roofline_row(run_cfg, rows, n_steps=10, n_repeats=3)
+        model = load_checkpoint(run_cfg, ckpt).to("cuda").eval()
+        rnd = roofline.sampler_row(run_cfg, model, n_batches=3)
+        for row in (step, rnd):
+            check(row["flops" if row is step else "flops_per_round"] > 0
+                  and math.isfinite(row["mfu"]), f"{tag}: roofline {row}")
+            log(f"    {tag} {roofline.fmt_row(row)}")
+            log("      " + json.dumps({k: row[k] for k in (
+                "kind", "n", "mfu", "sol_step_time_s", "sol_fraction",
+                "bound", "hbm_min_bytes", "card")}))
+    log(f"    15c took {time.time() - t_start:.1f} s")
+
+
+def phase_ab_two_phase(cfg, pretrained: tuple) -> None:
+    """15d: the two-phase A/B on phase 13's raised GGNN at N=13."""
+    from graphinvent_tpu_torch.tools import ab_two_phase
+    log(f"[15d two-phase A/B: phase 13's raised GGNN, N=13, cap "
+        f"{TWO_PHASE_ROUNDS}, {AB_BATCHES} batches of {B}]")
+    t_start = time.time()
+    job, epoch = pretrained
+    run_cfg, model = load_trained(cfg, job, "bfloat16", epoch)
+    out = ab_two_phase.ab(run_cfg, model.eval(), TWO_PHASE_ROUNDS,
+                          AB_BATCHES)
+    check(out["n_stragglers"] > 0 and out["single_molecules_per_s"] > 0,
+          f"two-phase A/B: {out}")
+    log(f"    single-phase {out['single_molecules_per_s']:.1f} molecules/s "
+        f"({out['single_rounds']} rounds), two-phase "
+        f"{out['two_phase_molecules_per_s']:.1f} molecules/s "
+        f"({out['two_phase_rounds']} rounds, {out['n_continuation']} "
+        f"continuation batches): {out['speedup']:.3f}x; stragglers "
+        f"{out['n_stragglers']} of {out['molecules']}; actions a row "
+        f"{out['actions']} [{out['card']}]")
+    log(f"    15d took {time.time() - t_start:.1f} s")
+
+
+def phase_qsar_fine_tune(fused_enn, cfg, root: str, data: dict,
+                         pretrained: tuple) -> dict:
+    """15e: ``tools/train_qsar`` (logistic, on the card) on stand-in labels
+    ("has a ring") of phase 7's SMILES, then one fine-tune step scored by
+    that model through ``main``; -> the job's launch counts."""
+    from graphinvent_tpu_torch.chem import mol_from_smiles
+    from graphinvent_tpu_torch.eval.moses import read_smi
+    from graphinvent_tpu_torch.tools import train_qsar
+    from graphinvent_tpu_torch.tools.synthesize_smiles import write_smi
+    log("[15e a QSAR-scored fine-tune step: logistic model on stand-in "
+        "labels (has a ring), not DRD2]")
+    t_start = time.time()
+    smiles = read_smi(os.path.join(data["dir"], "train.smi"))[:2000]
+    ring = [bool(mol_from_smiles(s).rings()) for s in smiles]
+    qdir = os.path.join(root, "qsar")
+    os.makedirs(qdir)
+    paths = [os.path.join(qdir, n) for n in ("actives.smi", "inactives.smi",
+                                             "ring.pickle")]
+    write_smi(paths[0], [s for s, r in zip(smiles, ring) if r])
+    write_smi(paths[1], [s for s, r in zip(smiles, ring) if not r])
+    t0 = time.time()
+    q = train_qsar.main([*paths, "--device", "cuda"])
+    log(f"    train_qsar {time.time() - t0:.2f} s: {q['n']} molecules, "
+        f"{q['n_active']} with a ring, training accuracy "
+        f"{q['train_accuracy']:.4f}")
+    ft_cfg = fine_tune_cfg(cfg, data, pretrained[0], epochs=1,
+                           sample_every=1).replace(
+        score_components=("ring_activity", "QED"),
+        score_thresholds=(0.0, 0.0), qsar_models={"ring_activity": paths[2]})
+    workflow, launches = run_fine_tune(fused_enn, "GGNN QSAR", ft_cfg,
+                                       os.path.join(root, "fine_tune_qsar"))
+    conv = read_convergence(workflow.cfg.job_dir)
+    check(conv[0][4] > 0, f"the QSAR-scored step scored nothing: {conv}")
+    log(f"    15e took {time.time() - t_start:.1f} s")
+    return launches
+
+
 def main() -> None:
     # the port first: without the repo around it, fail before any output
     from graphinvent_tpu_torch.config import preset
@@ -2357,6 +2688,13 @@ def main() -> None:
         phase_native(fused_enn, cfg, model, root, data, pretrained["GGNN"],
                      gxx_s)
         by_job.update(phase_checkpoints(fused_enn, cfg, root, data, job))
+        camp = phase_campaign(fused_enn, root)
+        timed += phase_campaign_kernels(fused_enn, camp)
+        phase_moses(camp)
+        phase_roofline(cfg, data, job, camp)
+        phase_ab_two_phase(cfg, pretrained["GGNN"])
+        by_job["fine-tune (QSAR)"] = phase_qsar_fine_tune(
+            fused_enn, cfg, root, data, pretrained["GGNN"])
     print(json.dumps({"kernels": kernel_rows(timed)}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
 

@@ -16,7 +16,7 @@
 // block streams every layer's weights from L2 once per row tile: the L2 to
 // SM rate and the row tile's height set how close it gets to that bound.
 //
-// bf16 design (fused_enn_wgmma_kernel):
+// bf16 design (fused_enn_wgmma_kernel<TM, STREAM>):
 //  * Weights.  The wrapper lays each layer out once per model as the exact
 //    shared-memory image wgmma's B operand reads: per tower and per K-slab
 //    of 64, chunks of 64 output columns, each 64 x 64 bf16 K-major in the
@@ -37,13 +37,23 @@
 //    1/C of the weights and stores its bf16 slice into every peer's next
 //    buffer through distributed shared memory, then arrives on each peer's
 //    layer mbarrier.  A layer with fewer chunks than C runs on fewer blocks.
+//  * Wide inputs.  An input tile too wide for shared memory beside the
+//    ring (f_add_2 at N=40: 2,500 columns, 320 KB for 64 rows) is not
+//    loaded up front: a kernel of its own (64-row tiles, the plan's choice
+//    there; the other kernels compile none of this) streams layer 0's
+//    input one 64-column K-slab at a time
+//    into two halves of buffer 0, each warpgroup loading slab k+1 while
+//    its MMAs on slab k run, and reloads it for each pass over the
+//    layer's column chunks (from L2: the tile is read once per pass).
 //  * Zero padding.  Padded weight rows and columns and padded biases are
 //    0, SELU(0) = 0, and the input tile is zero-filled, so padded columns
 //    stay 0 from layer to layer; only the final store is masked.
 // The launch plan (TM = 64 or 128 rows, cluster size) comes from the
 // wrapper (fused_enn.launch_plan); this file checks it and sizes the ring.
 //
-// f32 (the parity dtype) runs on the CUDA cores (fused_enn_f32_kernel).
+// f32 (the parity dtype) runs on the CUDA cores (fused_enn_f32_kernel),
+// 32 rows a block, or 16 or 8 where the two row buffers of 32 rows of the
+// widest layer do not fit in shared memory.
 //
 // Plain C interface (loaded with ctypes): pointers and the stream come in
 // as void*, errors go back as the cudaError_t code.
@@ -56,7 +66,7 @@ namespace {
 
 constexpr int kMaxLayers = 8;
 constexpr int kThreads = 256;      // f32 kernel
-constexpr int kTileF32 = 32;       // rows per block, f32
+constexpr int kTileF32 = 32;       // rows per block, f32 (16 or 8 if wide)
 constexpr int kChunk = 64;         // output columns per wgmma, K per slab
 constexpr int kChunkBytes = kChunk * kChunk * 2;
 constexpr int kMaxChunks = 4;      // chunks per pass (128 accumulators)
@@ -81,6 +91,7 @@ struct Layout {
   int cluster;                   // blocks sharing one row tile
   int stages, stage_bytes;       // weight ring
   int act_bytes[2];              // ping-pong activation buffers
+  int stream_in;                 // layer 0 streams its input by K-slab
 };
 
 __device__ __forceinline__ float selu(float v) {
@@ -319,13 +330,46 @@ struct Pass {
   const float* bl;
   __nv_bfloat16* bias;                            // this warpgroup's, smem
   __nv_bfloat16* out;
+  const __nv_bfloat16* x;                         // the input (R, I), for
+  int I;                                          // a streamed layer 0
+  bool stream;
 };
+
+// Slab ks (input columns [64 ks, 64 ks + 64)) of this warpgroup's 64 rows
+// of the input, zero-filled, into half `half` of the current buffer in the
+// A operand's swizzled layout, then fenced for the MMAs: thread t loads
+// column t % 64 of 32 rows (a warp reads 32 consecutive columns of a row).
+template <int TM>
+__device__ __forceinline__ void load_input_slab(const Pass& p, int ks,
+                                                int half) {
+  const int t = threadIdx.x % 128, wrow = p.wg * 64;
+  const int cc = t % 64, r0 = (t / 64) * 32, c = ks * kChunk + cc;
+  unsigned short v[32];
+#pragma unroll
+  for (int u = 0; u < 32; ++u) {
+    const int gr = p.row0 + wrow + r0 + u;
+    v[u] = c < p.I && gr < p.R
+               ? __bfloat16_as_ushort(p.x[(long long)gr * p.I + c])
+               : (unsigned short)0;
+  }
+  const uint32_t base = p.cur + half * TM * 128;
+#pragma unroll
+  for (int u = 0; u < 32; ++u) {
+    const int row = wrow + r0 + u;
+    const uint32_t addr = base + row * 128 +
+                          ((((cc >> 3) ^ (row & 7))) << 4) + ((cc & 7) << 1);
+    asm volatile("st.shared.b16 [%0], %1;" ::"r"(addr), "h"(v[u])
+                 : "memory");
+  }
+  fence_async_cta();
+  warpgroup_bar(p.wg);
+}
 
 // One pass of a consumer warpgroup: NC column chunks from chunk p.cs of one
 // layer, over all its K-slabs, then the epilogue.  NC is a template
 // argument so that the wgmma sequence is straight-line code and nothing
 // else touches the accumulators while the MMAs are in flight.
-template <int TM, int NC>
+template <int TM, int NC, bool STREAM>
 __device__ __forceinline__ void consume_pass(const Pass& p, int& it) {
   const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int wrow = p.wg * 64;
@@ -342,12 +386,17 @@ __device__ __forceinline__ void consume_pass(const Pass& p, int& it) {
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
   int prev = 0;
+  // the streaming kernel's layer 0; every other kernel compiles none of it
+  const bool stream = STREAM && p.stream;
+  if (stream) load_input_slab<TM>(p, 0, 0);
   for (int ks = 0; ks < p.nk; ++ks, ++it) {
     const int s = it % p.stages;
     mbar_wait(p.full_bar + 8 * s, (it / p.stages) & 1);
     __syncwarp();
     wgmma_fence();
-    const uint32_t a_base = p.cur + ks * TM * 128 + wrow * 128;
+    // a streamed input holds slab ks in half ks & 1 of the buffer
+    const uint32_t a_base =
+        p.cur + (stream ? ks & 1 : ks) * TM * 128 + wrow * 128;
     const uint32_t b_base = p.ring + s * p.stage_bytes;
 #pragma unroll
     for (int k16 = 0; k16 < 4; ++k16) {
@@ -363,6 +412,8 @@ __device__ __forceinline__ void consume_pass(const Pass& p, int& it) {
       if (lane == 0) mbar_arrive(p.empty_bar + 8 * prev);
     }
     prev = s;
+    // slab ks - 1's MMAs are done: its half takes slab ks + 1
+    if (stream && ks + 1 < p.nk) load_input_slab<TM>(p, ks + 1, (ks + 1) & 1);
   }
   wgmma_wait<0>();
   if (lane == 0) mbar_arrive(p.empty_bar + 8 * prev);
@@ -420,7 +471,7 @@ __device__ __forceinline__ void consume_pass(const Pass& p, int& it) {
                                    acc[c][4 * j + 2 * h + 1])));
 }
 
-template <int TM>
+template <int TM, bool STREAM>
 __global__ void __launch_bounds__(TM * 2 + 32)
 fused_enn_wgmma_kernel(const __nv_bfloat16* __restrict__ x,
                        const __nv_bfloat16* __restrict__ slabs,
@@ -486,7 +537,7 @@ fused_enn_wgmma_kernel(const __nv_bfloat16* __restrict__ x,
     // ---- consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) ----
     const int wg = warp / 4, t = threadIdx.x % 128;
     const int wrow = wg * 64;
-    {
+    if (!STREAM) {
       // the input tile, zero-filled; rows of I bf16 are not 16-byte
       // aligned, so plain loads: a thread walks one column down its
       // warpgroup's 64 rows, kBatch loads in flight
@@ -520,15 +571,16 @@ fused_enn_wgmma_kernel(const __nv_bfloat16* __restrict__ x,
       const float* bl = b + L.b_off[l] + (long long)e * L.pads[l + 1];
       const Pass pass = {cur, nxt, ring, full_bar, empty_bar, L.stages,
                          L.stage_bytes, w.nk, 0, wg, O, R, row0, e, last, bl,
-                         bias_smem, out};
+                         bias_smem, out, x, L.dims[0],
+                         STREAM && l == 0};
       for (int cs = w.c0; cs < w.c1; cs += kMaxChunks) {
         Pass pc = pass;
         pc.cs = cs;
         switch (min(kMaxChunks, w.c1 - cs)) {
-          case 1: consume_pass<TM, 1>(pc, it); break;
-          case 2: consume_pass<TM, 2>(pc, it); break;
-          case 3: consume_pass<TM, 3>(pc, it); break;
-          default: consume_pass<TM, 4>(pc, it); break;
+          case 1: consume_pass<TM, 1, STREAM>(pc, it); break;
+          case 2: consume_pass<TM, 2, STREAM>(pc, it); break;
+          case 3: consume_pass<TM, 3, STREAM>(pc, it); break;
+          default: consume_pass<TM, 4, STREAM>(pc, it); break;
         }
       }
       if (last) break;
@@ -569,10 +621,13 @@ int pad_to(int n, int m) { return (n + m - 1) / m * m; }
 // Shared memory of the wgmma kernel; mirrored by fused_enn.smem_plan in
 // the wrapper.  Buffer 0 holds the input and the outputs of odd layers,
 // buffer 1 those of even layers; the last layer's output never lands in
-// shared memory.  Returns the total bytes, or -1 if fewer than 2 stages fit.
-int plan_smem(Layout& L, int tile) {
+// shared memory.  If fewer than 2 ring stages fit beside the whole input
+// tile, a 64-row tile streams layer 0's input in K-slabs through two
+// 64-column halves of buffer 0 (stream_in).  Returns the total bytes, or -1
+// if fewer than 2 stages fit.
+int plan_smem_as(Layout& L, int tile, int stream_in) {
   const int n = L.n_layers;
-  int width[2] = {L.pad64[0], 0};
+  int width[2] = {stream_in ? 2 * kChunk : L.pad64[0], 0};
   int chunks = 1;
   for (int l = 0; l < n; ++l) {
     if (l < n - 1) {
@@ -588,15 +643,21 @@ int plan_smem(Layout& L, int tile) {
   const int fixed =
       L.act_bytes[0] + L.act_bytes[1] + kBarrierBytes + kBiasBytes + 1024;
   L.stages = min(kMaxStages, (kMaxSmem - fixed) / L.stage_bytes);
+  L.stream_in = stream_in;
   if (L.stages < 2) return -1;
   return fixed + L.stages * L.stage_bytes;
 }
 
-template <int TM>
+int plan_smem(Layout& L, int tile) {
+  const int smem = plan_smem_as(L, tile, 0);
+  return smem >= 0 || tile != 64 ? smem : plan_smem_as(L, tile, 1);
+}
+
+template <int TM, bool STREAM>
 cudaError_t launch_wgmma(const void* x, const void* slabs, const void* b,
                          void* out, int R, int E, Layout L, int smem,
                          cudaStream_t stream) {
-  auto kernel = fused_enn_wgmma_kernel<TM>;
+  auto kernel = fused_enn_wgmma_kernel<TM, STREAM>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -633,18 +694,33 @@ cudaError_t launch_wgmma(const void* x, const void* slabs, const void* b,
   return cudaGetLastError();
 }
 
-cudaError_t launch_f32(const void* x, const void* w, const void* b, void* out,
-                       int R, int E, const Layout& L, cudaStream_t stream) {
-  auto kernel = fused_enn_f32_kernel<kTileF32>;
-  const size_t smem = 2 * (size_t)kTileF32 * L.lda * sizeof(float);
+template <int TM>
+cudaError_t launch_f32_tile(const void* x, const void* w, const void* b,
+                            void* out, int R, int E, const Layout& L,
+                            size_t smem, cudaStream_t stream) {
+  auto kernel = fused_enn_f32_kernel<TM>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((R + kTileF32 - 1) / kTileF32, E);
+  const dim3 grid((R + TM - 1) / TM, E);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(w),
       static_cast<const float*>(b), static_cast<float*>(out), R, L);
   return cudaGetLastError();
+}
+
+// the largest tile of 32, 16 or 8 rows whose two row buffers fit
+cudaError_t launch_f32(const void* x, const void* w, const void* b, void* out,
+                       int R, int E, const Layout& L, cudaStream_t stream) {
+  const size_t row_bytes = 2 * (size_t)L.lda * sizeof(float);
+  if (kTileF32 * row_bytes <= (size_t)kMaxSmem)
+    return launch_f32_tile<kTileF32>(x, w, b, out, R, E, L,
+                                     kTileF32 * row_bytes, stream);
+  if (16 * row_bytes <= (size_t)kMaxSmem)
+    return launch_f32_tile<16>(x, w, b, out, R, E, L, 16 * row_bytes, stream);
+  if (8 * row_bytes <= (size_t)kMaxSmem)
+    return launch_f32_tile<8>(x, w, b, out, R, E, L, 8 * row_bytes, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -693,8 +769,10 @@ int fused_enn_forward(int dtype, const void* x, const void* w, const void* b,
   const int smem = plan_smem(L, tile_rows);
   if (smem < 0) return (int)cudaErrorInvalidValue;
   if (tile_rows == 128)
-    return (int)launch_wgmma<128>(x, w, b, out, R, E, L, smem, s);
-  return (int)launch_wgmma<64>(x, w, b, out, R, E, L, smem, s);
+    return (int)launch_wgmma<128, false>(x, w, b, out, R, E, L, smem, s);
+  if (L.stream_in)
+    return (int)launch_wgmma<64, true>(x, w, b, out, R, E, L, smem, s);
+  return (int)launch_wgmma<64, false>(x, w, b, out, R, E, L, smem, s);
 }
 
 const char* fused_enn_error_string(int code) {

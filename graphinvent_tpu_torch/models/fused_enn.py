@@ -194,10 +194,21 @@ def smem_plan(dims: Sequence[int], plan: LaunchPlan
     """(shared-memory bytes, ring stages) of the bf16 kernel under ``plan``,
     as ``plan_smem`` in the CUDA source computes them; None if fewer than 2
     stages fit.  Buffer 0 holds the input and odd layers' outputs, buffer 1
-    even layers'; the last layer's output goes straight to device memory."""
+    even layers'; the last layer's output goes straight to device memory.
+    Where the whole input tile leaves no room for 2 stages, a 64-row tile
+    streams layer 0's input by 64-column K-slabs through two halves of
+    buffer 0."""
+    fits = _smem_plan(dims, plan, False)
+    if fits is None and plan.tile_rows == 64:
+        return _smem_plan(dims, plan, True)
+    return fits
+
+
+def _smem_plan(dims: Sequence[int], plan: LaunchPlan, stream_in: bool
+               ) -> Optional[Tuple[int, int]]:
     pads = [_pad64(d) for d in dims]
     n = len(dims) - 1
-    width = [pads[0], 0]
+    width = [2 * CHUNK if stream_in else pads[0], 0]
     for l in range(n - 1):
         width[(l + 1) % 2] = max(width[(l + 1) % 2], pads[l + 1])
     chunks = max(min(MAX_CHUNKS, -(-(p // CHUNK) // plan.cluster))

@@ -23,3 +23,22 @@ def compute_dtype(cfg) -> torch.dtype:
     """The activations' type: bf16 (weights stay f32 and are cast at use)
     or f32."""
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+
+
+# NVIDIA H100 SXM data sheet, dense rates at the full 700 W power limit:
+# bf16 tensor-core FLOP/s, float32 FLOP/s outside the tensor cores, HBM3
+# bytes/s.  chip_smoke.py and tools/roofline.py take their bounds from here.
+PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+
+def card_name_and_power_limit() -> str:
+    """``name, power.limit`` of the first card as ``nvidia-smi`` prints
+    them (a card set below 700 W runs slower than the peaks above)."""
+    import subprocess
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True)
+    return out.stdout.strip().splitlines()[0]

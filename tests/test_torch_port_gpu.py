@@ -42,6 +42,12 @@ SHAPES = [
     ("emn_embedding", 1, 96000, 19, [250] * 4, 100),
     ("emn_packed", 1, 96000, 100, [250] * 4, 100),
     ("emn_dense", 1, 169000, 100, [250] * 4, 100),
+    # the GGNN at ChEMBL-proxy width (N=40, E=4), B=1000
+    ("att_nn_n40", 1, 40000, 108, [250] * 4, 100),
+    ("f_add_1_n40", 1, 40000, 100, [500] * 4, 60),
+    ("f_conn_1_n40", 1, 40000, 100, [500] * 4, 4),
+    ("f_add_2_n40", 1, 1000, 2500, [500] * 4, 2400),
+    ("f_conn_2_n40", 1, 1000, 260, [500] * 4, 160),
 ]
 
 

@@ -36,8 +36,8 @@ def _imported(path):
 
 def test_every_sub_package_is_covered():
     dirs = {os.path.dirname(p) for p in _sources()}
-    for sub in ("chem", "data", "eval", "models", "rl", "sampling", "train",
-                "utils"):
+    for sub in ("chem", "data", "eval", "models", "rl", "sampling", "tools",
+                "train", "utils"):
         assert os.path.join("graphinvent_tpu_torch", sub) in dirs, sub
     # h5py is imported by the storage module alone, and only inside calls
     users = [p for p in _sources() if "h5py" in set(_imported(p))]

@@ -263,6 +263,41 @@ def test_launch_plan_is_deterministic_and_fits_shared_memory():
             assert 2 <= stages <= fused_enn.MAX_STAGES, (name, p)
 
 
+def _n40_sites():
+    """(R, E, dims) of every launch of a GGNN forward at ChEMBL-proxy
+    width (N=40, aromatic bonds: E=4), B=1000."""
+    from graphinvent_tpu_torch.config import preset
+    cfg = preset("GGNN", max_n_nodes=40, use_aromatic_bonds=True)
+    R, B, H, G = 1000 * 40, 1000, cfg.hidden_node_features, cfg.gather_width
+    h1, h2 = [cfg.mlp1_hidden_dim] * 4, [cfg.mlp2_hidden_dim] * 4
+    fa, fc = cfg.len_f_add_per_node, cfg.len_f_conn_per_node
+    return {
+        "msg_nns": (R, cfg.n_edge_features, (H, *[250] * 4, H)),
+        "att_nn": (R, 1, (H + cfg.n_node_features, *[250] * 4, G)),
+        "emb_nn": (R, 1, (H, *[250] * 4, G)),
+        "f_add_1": (R, 1, (H, *h1, fa)),
+        "f_conn_1": (R, 1, (H, *h1, fc)),
+        "f_add_2": (B, 1, (40 * fa + G, *h2, 40 * fa)),
+        "f_conn_2": (B, 1, (40 * fc + G, *h2, 40 * fc)),
+        "f_term_2": (B, 1, (G, *h2, 1)),
+    }
+
+
+@pytest.mark.parametrize("site", list(_n40_sites()))
+def test_every_n40_site_fits_and_only_f_add_2_streams_its_input(site):
+    """f_add_2's input at N=40 (40 x 60 + 100 = 2,500 columns, 320 KB for
+    64 rows) does not fit in shared memory beside the ring: layer 0
+    streams it by K-slab; every other site keeps its whole input tile."""
+    R, E, dims = _n40_sites()[site]
+    plan = fused_enn.launch_plan(R, E, dims)
+    for p in [plan, *fused_enn.plan_choices(dims)]:
+        smem, stages = fused_enn.smem_plan(dims, p)
+        assert smem <= fused_enn.MAX_SMEM and 2 <= stages, (site, p)
+        streams = fused_enn._smem_plan(dims, p, False) is None
+        assert streams == (site == "f_add_2"), (site, p)
+    assert (dims[0] == 2500) == (site == "f_add_2")
+
+
 def test_swizzle_is_its_own_inverse():
     t = torch.arange(2 * 64 * 64, dtype=torch.float32).reshape(2, 64, 64)
     s = fused_enn.swizzle_tiles(t)
