@@ -84,14 +84,21 @@ Phases (any failure raises and the script exits non-zero):
      recorded ll against the replay of its actions (1e-4); one ``rl_loss``
      gradient at B=64 on the card against the CPU (as phase 12: f32 loss
      1e-3, every f32 leaf 2e-4 on the card's SELU branches, every float64
-     leaf 1e-9), with no kernel launch; one learning step: the prior and the
-     BASF byte-equal to before, the agent's kernel-path logits within 0.15
-     of its plain path's, and the same step from the same seed and
-     checkpoint again gives byte-equal agent weights;
+     leaf 1e-9), with no kernel launch; one learning step (the step
+     overlaps host scoring with the device: ``FineTuner.step``): the prior
+     and the BASF byte-equal to before, the agent's kernel-path logits
+     within 0.15 of its plain path's, the same step from the same seed and
+     checkpoint again gives byte-equal agent weights, and the same step
+     composed in sequence from ``rollout`` / ``replay`` / ``learn`` on a
+     fresh copy gives the same loss and agent weights bit for bit; 13a's
+     GGNN job and 15e's QSAR-scored job are each run once more with every
+     step so composed: fine-tuning.log, convergence.log and the agent's
+     weights byte-equal;
   13c. timings: a step split into its pieces (CUDA events at each piece's
-     end) and its wall, the device's busy share over a profiled step, the
-     gradient replay's time and peak memory at ``rl_remat_segment`` 1 and
-     2;
+     end), the host seconds it waited for the scoring worker
+     (``scoring_wait``) and its wall, the device's busy share over a
+     profiled step, the gradient replay's time and peak memory at
+     ``rl_remat_segment`` 1 and 2;
   13d. the generate job with the two-phase sampler (n_samples=4000, phase 1
      capped at TWO_PHASE_ROUNDS rounds) on the fine-tune GGNN: launches 10
      a round of every loop, the job's files, and every row that finished in
@@ -161,7 +168,29 @@ Phases (any failure raises and the script exits non-zero):
      ``tools/trace_step`` and ``tools/trace_sampler`` with their tables
      (the fused kernel's launches by its wrapper and in CUPTI's list);
      ``tools/create_dataset`` (serial and 4 ``forkserver`` workers, same
-     files) and ``tools/dataset_stats`` on phase 7's SMILES.
+     files) and ``tools/dataset_stats`` on phase 7's SMILES;
+  17. one process's mesh (data, model, graph), its ranks sharing the card
+     over gloo: 17a the kernel at a rank's node part and at the split
+     head's slices; 17b a test job with graph=2; 17c an f32 step at N=40
+     over mp=2 x graph=2 against one device's; 17d a dp=2 generate job and
+     a dp=2 x graph=2 fine-tune step, and that step's gradient replay on
+     four ranks; 17e ``train_qsar --classifier svc`` against the CPU fit;
+  18. a ``.h5`` dataset written elsewhere, read on the card with ``import
+     h5py`` blocked throughout: 18a the committed fixture
+     (``tests/torch_port_data/ggnn_n13.h5``, written by the JAX package's
+     preprocessing) through ``ReadStore``: each array's shape, dtype and
+     sha256 against its manifest, the seconds to open it and read it whole
+     beside the same arrays as ``.npd``; 18b the test job through ``main``
+     on it as test.h5 and train.h5 (phase 8's checkpoint, B=1000, bf16):
+     validation.log and the generated files byte-equal to the job on the
+     ``.npd`` copy, launches exactly 10 x (rounds + NLL batches), and the
+     kernel against its plain version at the NLL batch's shapes (phase 3's
+     weights, inputs and bars); 18c one streamed epoch restarted from
+     phase 8 on it as
+     train.h5 and valid.h5: per-step losses, convergence.log and
+     validation.log bit-equal to the epoch on the ``.npd`` copy, one APD
+     wire format for each dataset (printed), launches exactly 10 x the
+     grad-free forwards.
 
 Each phase's header line carries the seconds since the script started.
 The second-to-last line is {"kernels": [...]}, the last line
@@ -1737,11 +1766,60 @@ def run_fine_tune(fused_enn, tag: str, ft_cfg, job: str):
         f"{sum(launches.values())} kernel launches "
         f"({per_forward(ft_cfg)} a forward); BASF rows past the gate "
         f"{tuner.basf_gated}; peak device memory {peak:.0f} MiB")
-    for s, times in zip(steps, tuner.step_timings):
+    for s, times, wait in zip(steps, tuner.step_timings,
+                              tuner.scoring_waits):
         log(f"      step {s}: " + ", ".join(
             f"{k} {v:.3f}" for k, v in times.items())
-            + f" s; sum {sum(times.values()):.3f} s")
+            + f" s; sum {sum(times.values()):.3f} s; scoring_wait "
+            f"{wait:.3f} s")
     return workflow, launches
+
+
+def sequential_step(tuner, step: int) -> float:
+    """Fine-tune step ``step`` composed from the fine-tuner's rollout /
+    replay / learn, one piece after another (no scoring worker)."""
+    from graphinvent_tpu_torch.rl.workflow_rl import ROLE_AGENT, ROLE_BASF
+    res_a = tuner.rollout(tuner.agent, step, ROLE_AGENT)
+    prior_ll = tuner.replay(tuner.prior, res_a)
+    res_b = tuner.rollout(tuner.basf, step, ROLE_BASF)
+    return tuner.learn(step, res_a, prior_ll, res_b,
+                       tuner.replay(tuner.basf, res_b))
+
+
+def sequential_twin(tag: str, ft_cfg, job: str, tuner) -> None:
+    """Runs the fine-tune job of ``ft_cfg`` once more in a fresh dir as
+    ``learning_phase`` runs it, each step from :func:`sequential_step`;
+    its fine-tuning.log, convergence.log and agent must equal the
+    overlapped job's in ``job`` byte for byte."""
+    from graphinvent_tpu_torch.rl.workflow_rl import (
+        FineTuner, find_pretrained,
+    )
+    from graphinvent_tpu_torch.utils.weights import load_checkpoint
+    from graphinvent_tpu_torch.workflow import Workflow
+    twin = job + "_sequential"
+    os.makedirs(twin)
+    run_cfg = ft_cfg.replace(job_dir=twin + "/")
+    path, epoch = find_pretrained(run_cfg)
+    wf = Workflow(run_cfg)
+    seq = FineTuner(wf, load_checkpoint(run_cfg, path).to(wf.device),
+                    epoch + 1)
+    seq.pre_evaluation()
+    for step in range(epoch + 1, epoch + 1 + run_cfg.epochs):
+        sequential_step(seq, step)
+        if step % run_cfg.sample_every == 0:
+            seq.evaluate(step)
+    same_files(job, twin, ["fine-tuning.log", "convergence.log"],
+               f"{tag}: overlapped vs sequential")
+    b = seq.agent.state_dict()
+    check(all(torch.equal(v, b[k]) for k, v in tuner.agent.state_dict()
+              .items()), f"{tag}: the overlapped job's agent differs from "
+          "the sequential composition's")
+    waits = [round(w, 4) for w in tuner.scoring_waits]
+    scoring = [round(t["scoring"], 4) for t in seq.step_timings]
+    log(f"    {tag}: the same job with each step composed in sequence: "
+        f"fine-tuning.log, convergence.log and the agent's weights "
+        f"byte-equal; scoring_wait a step {waits} s overlapped, scoring "
+        f"{scoring} s in sequence")
 
 
 def phase_fine_tune(fused_enn, cfg, models, root: str, data: dict,
@@ -1750,12 +1828,14 @@ def phase_fine_tune(fused_enn, cfg, models, root: str, data: dict,
     log("[13a fine-tune jobs: bf16, B=1000; GGNN 3 steps, AttGGNN and EMN "
         "1 step, on the pretrained models]")
     out = {}
-    workflow, out["GGNN"] = run_fine_tune(
-        fused_enn, "GGNN", fine_tune_cfg(cfg, data, pretrained["GGNN"][0],
-                                         epochs=3, sample_every=3),
-        os.path.join(root, "fine_tune_GGNN"))
+    ggnn_cfg = fine_tune_cfg(cfg, data, pretrained["GGNN"][0], epochs=3,
+                             sample_every=3)
+    ggnn_job = os.path.join(root, "fine_tune_GGNN")
+    workflow, out["GGNN"] = run_fine_tune(fused_enn, "GGNN", ggnn_cfg,
+                                          ggnn_job)
     check(sum(workflow.fine_tuner.basf_gated) > 0,
           "GGNN: no BASF row passed the gate in any step")
+    sequential_twin("GGNN", ggnn_cfg, ggnn_job, workflow.fine_tuner)
     for name in ("AttGGNN", "EMN"):
         _, out[name] = run_fine_tune(
             fused_enn, name, fine_tune_cfg(models[name][0], data,
@@ -1908,7 +1988,7 @@ def phase_fine_tune_numerics(fused_enn, cfg, root: str, data: dict,
     tuner = tuner_in("fine_tune_step")
     before = {k: {n: v.clone() for n, v in getattr(tuner, k).state_dict()
                   .items()} for k in ("prior", "basf", "agent")}
-    tuner.step(3)
+    loss = tuner.step(3)
     for k, state in before.items():
         same = all(torch.equal(v, state[n])
                    for n, v in getattr(tuner, k).state_dict().items())
@@ -1934,6 +2014,17 @@ def phase_fine_tune_numerics(fused_enn, cfg, root: str, data: dict,
         f"{LOGIT_TOL[torch.bfloat16]}); the step from the same seed and "
         f"checkpoint again: agent weights byte-equal {same}")
     check(same, "two runs of one step left different agent weights")
+    seq = tuner_in("fine_tune_sequential")
+    seq_loss = sequential_step(seq, 3)
+    same = all(torch.equal(v, agent.state_dict()[n])
+               for n, v in seq.agent.state_dict().items())
+    log(f"    the overlapped step against the same step composed in "
+        f"sequence on a fresh copy: loss {loss!r} vs {seq_loss!r}, agent "
+        f"weights after Adam byte-equal {same}; scoring_wait "
+        f"{tuner.scoring_waits[-1]:.4f} s, scoring in sequence "
+        f"{seq.step_timings[-1]['scoring']:.4f} s")
+    check(loss == seq_loss and same,
+          "the overlapped step differs from the sequential composition")
     return tuner
 
 
@@ -1955,7 +2046,8 @@ def phase_fine_tune_timings(tuner) -> None:
     times = tuner.step_timings[-1]
     log(f"    one step: {wall:.3f} s wall, {start.elapsed_time(end):.1f} ms "
         "between CUDA events; " + ", ".join(
-            f"{k} {v:.3f} s" for k, v in times.items()))
+            f"{k} {v:.3f} s" for k, v in times.items())
+        + f"; scoring_wait {tuner.scoring_waits[-1]:.3f} s")
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -2685,8 +2777,10 @@ def phase_qsar_fine_tune(fused_enn, cfg, root: str, data: dict,
                            sample_every=1).replace(
         score_components=("ring_activity", "QED"),
         score_thresholds=(0.0, 0.0), qsar_models={"ring_activity": paths[2]})
+    qsar_job = os.path.join(root, "fine_tune_qsar")
     workflow, launches = run_fine_tune(fused_enn, "GGNN QSAR", ft_cfg,
-                                       os.path.join(root, "fine_tune_qsar"))
+                                       qsar_job)
+    sequential_twin("GGNN QSAR", ft_cfg, qsar_job, workflow.fine_tuner)
     conv = read_convergence(workflow.cfg.job_dir)
     check(conv[0][4] > 0, f"the QSAR-scored step scored nothing: {conv}")
     log(f"    15e took {time.time() - t_start:.1f} s")
@@ -4025,6 +4119,177 @@ def phase_mesh(fused_enn, cfg, model, root: str, data: dict, job: str,
     return timed
 
 
+# --------------------------------------------------------------------------
+# phase 18: a .h5 dataset written elsewhere, read on the card without h5py
+# --------------------------------------------------------------------------
+
+FIXTURE = os.path.join(ROOT, "tests", "torch_port_data", "ggnn_n13.json")
+
+
+@contextlib.contextmanager
+def without_h5py():
+    """``import h5py`` raises inside, as on a machine without h5py,
+    wherever h5py is installed."""
+    saved = sys.modules.get("h5py")
+    sys.modules["h5py"] = None
+    try:
+        yield
+    finally:
+        sys.modules.pop("h5py", None)
+        if saved is not None:
+            sys.modules["h5py"] = saved
+
+
+def read_whole(path: str) -> tuple:
+    """(arrays read whole from ``path`` through ``ReadStore``, seconds to
+    open, seconds to read)."""
+    from graphinvent_tpu_torch.data import store
+    t0 = time.perf_counter()
+    ds = store.ReadStore(path)
+    t1 = time.perf_counter()
+    arrays = {k: np.array(v) for k, v in ds.arrays.items()}
+    t2 = time.perf_counter()
+    ds.close()
+    return arrays, t1 - t0, t2 - t1
+
+
+def phase_h5_fixture(root: str, data: dict) -> dict:
+    """18a: the committed fixture (written by the JAX package's
+    preprocessing with h5py) through ``ReadStore``; -> two dataset dirs
+    holding it as train / valid / test, one as ``.h5`` and one as a
+    ``.npd`` copy, each with phase 7's csv files."""
+    import hashlib
+    from graphinvent_tpu_torch.data import store
+    with open(FIXTURE) as fh:
+        manifest = json.load(fh)
+    log(f"[18a the committed .h5 fixture ({manifest['rows']} rows, "
+        f"{manifest['bytes']} bytes; h5py {manifest['h5py']}, HDF5 "
+        f"{manifest['hdf5']}) through ReadStore, import h5py blocked]")
+    path = os.path.join(os.path.dirname(FIXTURE), manifest["file"])
+    with without_h5py():
+        arrays, open_s, read_s = read_whole(path)
+    for name, want in manifest["arrays"].items():
+        got = arrays[name]
+        digest = hashlib.sha256(np.ascontiguousarray(got).tobytes())
+        check(list(got.shape) == want["shape"]
+              and str(got.dtype) == want["dtype"]
+              and digest.hexdigest() == want["sha256"],
+              f"{name}: {got.shape} {got.dtype} does not match the manifest")
+    dirs = {}
+    for backend in ("h5", "npd"):
+        d = os.path.join(root, "fixture_" + backend)
+        os.makedirs(d)
+        for name in ("train.csv", "preprocessing_params.csv"):
+            shutil.copy(os.path.join(data["dir"], name), d)
+        for split in ("train", "valid", "test"):
+            out = os.path.join(d, f"{split}.{backend}")
+            if backend == "h5":
+                shutil.copy(path, out)
+            else:
+                store.write_arrays(out, arrays)
+        dirs[backend] = d
+    _, npd_open, npd_read = read_whole(os.path.join(dirs["npd"], "train.npd"))
+    log(f"    shapes, dtypes and sha256 of nodes, edges, APDs equal the "
+        f"manifest; open {open_s * 1e3:.3f} ms, read whole "
+        f"{read_s * 1e3:.3f} ms (.h5); the same arrays as .npd: open "
+        f"{npd_open * 1e3:.3f} ms, read whole {npd_read * 1e3:.3f} ms")
+    return {"dirs": dirs, "rows": manifest["rows"]}
+
+
+def phase_h5_test(fused_enn, cfg, model, job: str, fixture: dict) -> dict:
+    """18b: the test job through ``main`` on the fixture as test.h5 (and
+    train.h5), phase 8's checkpoint, B=1000, bf16, against the same job on
+    the .npd copy, and the kernel at its NLL batch's shapes (phase 3's:
+    ``model``'s seeded weights, its inputs and bars); -> the .h5 job's
+    launch counts."""
+    log("[18b test job on the .h5 fixture against the .npd copy]")
+    test_cfg = cfg.replace(
+        job_type="test", batch_size=B, block_size=10000, n_samples=1000,
+        tensorboard_dir="", device="cuda", compute_dtype="bfloat16")
+    jobs, launches, walls = {}, {}, {}
+    for backend, d in fixture["dirs"].items():
+        jobs[backend] = os.path.join(os.path.dirname(d), "test_" + backend)
+        os.makedirs(jobs[backend])
+        copy_checkpoint(job, jobs[backend], 2)
+        fused_enn.reset_launch_counts()
+        workflow, walls[backend] = run_job(
+            test_cfg.replace(dataset_dir=d + "/"), jobs[backend])
+        rounds = sum(r for r, _ in workflow.batch_stats)
+        nll = 2 * n_batches(min(test_cfg.n_samples, fixture["rows"]))
+        launches[backend] = check_launches(
+            fused_enn, test_cfg, f"test job on the {backend} fixture",
+            rounds + nll)
+    same_files(jobs["h5"], jobs["npd"], ["validation.log"] +
+               gen_files(jobs["h5"]), "18b test job, .h5 vs .npd")
+    scores = read_validation(jobs["h5"])["Test 2"]
+    check(all(math.isfinite(x) for x in scores), f"18b scores {scores}")
+    log(f"    validation.log and generation/ byte-equal; Test 2: NLL test "
+        f"{scores[0]:.4f}, train {scores[1]:.4f}; {rounds} rounds + {nll} "
+        f"NLL batches, {sum(launches['h5'].values())} launches; job "
+        f"{walls['h5']:.2f} s (.h5) / {walls['npd']:.2f} s (.npd)")
+    log("    kernel vs plain at the NLL batch's shapes (B=1000, N=13: phase "
+        "3's shapes, weights, inputs and bars):")
+    sites_check(fused_enn, main_path_sites(model))
+    return launches["h5"]
+
+
+def phase_h5_stream(fused_enn, cfg, job: str, fixture: dict) -> dict:
+    """18c: one streamed epoch restarted from phase 8 on the fixture as
+    train.h5 / valid.h5, against the same epoch on the .npd copy; -> the
+    .h5 job's launch counts."""
+    import graphinvent_tpu_torch.workflow as port_workflow
+    log("[18c streamed epoch restarted from phase 8 on the .h5 fixture "
+        "against the .npd copy]")
+    stream_cfg = cfg.replace(
+        job_type="train", batch_size=B, block_size=10000, restart=True,
+        epochs=1, schedule_epochs=3, sample_every=1, n_samples=1000,
+        device_data_gb=0.0, tensorboard_dir="", device="cuda",
+        compute_dtype="bfloat16")
+    inner = port_workflow.make_train_step
+    losses, launches, jobs, wires, walls = {}, {}, {}, {}, {}
+    for backend, d in fixture["dirs"].items():
+        jobs[backend] = os.path.join(os.path.dirname(d), "stream_" + backend)
+        os.makedirs(jobs[backend])
+        copy_checkpoint(job, jobs[backend], 2)
+        losses[backend] = []
+
+        def recording(*args, _into=losses[backend], **kw):
+            train_step = inner(*args, **kw)
+
+            def step(*a, **k):
+                loss = train_step(*a, **k)
+                _into.append(loss.detach().clone())
+                return loss
+            return step
+
+        fused_enn.reset_launch_counts()
+        port_workflow.make_train_step = recording
+        try:
+            workflow, walls[backend] = run_job(
+                stream_cfg.replace(dataset_dir=d + "/"), jobs[backend])
+        finally:
+            port_workflow.make_train_step = inner
+        check(workflow.data_path == "streamed",
+              f"18c took the {workflow.data_path} path")
+        wires[backend] = workflow.apd_wire
+        rounds = sum(r for r, _ in workflow.batch_stats)
+        launches[backend] = check_launches(
+            fused_enn, stream_cfg, f"streamed epoch on the {backend} fixture",
+            n_batches(fixture["rows"]) + 2 + rounds)
+    a, b = torch.stack(losses["h5"]), torch.stack(losses["npd"])
+    check(len(a) == n_batches(fixture["rows"]) and torch.equal(a, b),
+          f"18c per-step losses: {a.tolist()} vs {b.tolist()}")
+    check(wires["h5"] == wires["npd"], f"18c APD wires {wires}")
+    same_files(jobs["h5"], jobs["npd"], ["convergence.log", "validation.log"],
+               "18c streamed epoch, .h5 vs .npd")
+    log(f"    APD wire chosen once a dataset: {wires['h5']}; {len(a)} "
+        f"per-step losses bit-equal ({[round(x, 5) for x in a.tolist()]}); "
+        f"convergence.log and validation.log byte-equal; "
+        f"{sum(launches['h5'].values())} launches; job {walls['h5']:.2f} s "
+        f"(.h5) / {walls['npd']:.2f} s (.npd)")
+    return launches["h5"]
+
+
 def main() -> None:
     # the port first: without the repo around it, fail before any output
     from graphinvent_tpu_torch.config import preset
@@ -4088,6 +4353,12 @@ def main() -> None:
         phase_multi_tools(root, data, job)
         timed += phase_mesh(fused_enn, cfg, model, root, data, job, camp,
                             pretrained["GGNN"])
+        with without_h5py():
+            fixture = phase_h5_fixture(root, data)
+            by_job["test (.h5 fixture)"] = phase_h5_test(
+                fused_enn, cfg, model, job, fixture)
+            by_job["streamed epoch (.h5 fixture)"] = phase_h5_stream(
+                fused_enn, cfg, job, fixture)
     print(json.dumps({"kernels": kernel_rows(timed)}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
 

@@ -10,7 +10,11 @@ a block (no random row reads, BlockDatasetLoader.py:11-63), in numpy:
   ``(seed + 1, epoch)`` for the rows within a block, so the batches are
   byte-equal to the JAX loader's;
 * a ``shard_index / num_shards`` pair slices blocks round-robin;
-* a background thread reads the next block while the current one is used.
+* a background thread reads the next block while the current one is used;
+* the packed wire ships APD targets sparse or dense for the whole dataset,
+  decided once from its largest row (:meth:`HDFDataset.max_apd_nnz`), so
+  every batch of every epoch has one layout.  The JAX loader decides batch
+  by batch; the batches' losses are the same either way.
 
 The files are opened through ``data/store.py`` (HDF5, or a directory of
 .npy arrays).
@@ -26,6 +30,8 @@ import numpy as np
 
 from graphinvent_tpu_torch.data import store
 
+SCAN_ROWS = 8192        # rows a read of HDFDataset.max_apd_nnz's scan
+
 
 class HDFDataset:
     """Reads the three arrays written by preprocessing: ``nodes``,
@@ -40,6 +46,7 @@ class HDFDataset:
         self.edges = self._store.arrays["edges"]
         self.apds = self._store.arrays["APDs"]
         self.n_subgraphs = int(self.nodes.shape[0])
+        self._max_apd_nnz: Optional[int] = None
 
     def __len__(self) -> int:
         return self.n_subgraphs
@@ -51,6 +58,17 @@ class HDFDataset:
             "edges": np.asarray(self.edges[start:end], dtype=dtype),
             "apds": np.asarray(self.apds[start:end], dtype=dtype),
         }
+
+    def max_apd_nnz(self) -> int:
+        """The most nonzeros of any APD target row, scanned block by block
+        through the memmap; computed once."""
+        if self._max_apd_nnz is None:
+            most = 0
+            for lo in range(0, self.n_subgraphs, SCAN_ROWS):
+                block = np.asarray(self.apds[lo:lo + SCAN_ROWS])
+                most = max(most, int(np.count_nonzero(block, axis=1).max()))
+            self._max_apd_nnz = most
+        return self._max_apd_nnz
 
     def close(self) -> None:
         self._store.close()
@@ -66,11 +84,17 @@ def pack_rows(a: np.ndarray) -> np.ndarray:
     return np.packbits(np.ascontiguousarray(a).reshape(B, -1), axis=1)
 
 
+def sparse_fits(n_cols: int, nnz: int, cap: int) -> bool:
+    """Whether APD rows of ``n_cols`` columns with at most ``nnz`` nonzeros
+    fit the sparse wire of ``cap`` slots (uint16 column indices)."""
+    return n_cols <= np.iinfo(np.uint16).max and nnz <= cap
+
+
 def sparse_apds(apds: np.ndarray, cap: int
                 ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
     """APD target rows -> fixed-width (indices uint16, values int8) pairs,
-    or None when any row carries more than ``cap`` nonzeros (the caller
-    falls back to the dense wire for that batch).
+    or None when any row carries more than ``cap`` nonzeros (or a column
+    index does not fit uint16).
 
     APD rows are very sparse: a decoding step targets one action, plus the
     merges of duplicate subgraphs (DataProcesser.py:207-231).  On the
@@ -78,11 +102,9 @@ def sparse_apds(apds: np.ndarray, cap: int
     (``train.step.batch_arrays``), so padded (0, 0) slots add nothing and
     the loss is the dense wire's."""
     B, A = apds.shape
-    if A > np.iinfo(np.uint16).max:
-        return None
     nz_b, nz_j = np.nonzero(apds)
     counts = np.bincount(nz_b, minlength=B)
-    if len(nz_b) and counts.max() > cap:
+    if not sparse_fits(A, int(counts.max()) if len(nz_b) else 0, cap):
         return None
     idx = np.zeros((B, cap), np.uint16)
     val = np.zeros((B, cap), apds.dtype)
@@ -117,10 +139,16 @@ class BlockLoader:
         # uint8 + int8 "apds") instead of float32 tensors; the steps
         # unpack on the device.
         # apd_nnz > 0 additionally ships APD targets sparse ("apds_i"/
-        # "apds_v", see sparse_apds) with automatic per-batch dense
-        # fallback on overflow
+        # "apds_v", see sparse_apds) where the whole dataset's largest row
+        # fits apd_nnz slots, else dense: one layout for every batch.  The
+        # scan covers every row, not this shard's, so every rank of a
+        # multi-process job makes the same choice.
         self.packed = packed
         self.apd_nnz = apd_nnz
+        self.apd_wire = "dense"
+        if packed and apd_nnz > 0 and sparse_fits(
+                int(dataset.apds.shape[1]), dataset.max_apd_nnz(), apd_nnz):
+            self.apd_wire = "sparse"
         self._epoch = 0
 
     # ------------------------------------------------------------------
@@ -208,10 +236,9 @@ class BlockLoader:
                 if self.packed:
                     out = {"nodes_p": pack_rows(nodes),
                            "edges_p": pack_rows(edges), "valid": valid}
-                    sp = (sparse_apds(apds, self.apd_nnz)
-                          if self.apd_nnz else None)
-                    if sp is not None:
-                        out["apds_i"], out["apds_v"] = sp
+                    if self.apd_wire == "sparse":
+                        out["apds_i"], out["apds_v"] = sparse_apds(
+                            apds, self.apd_nnz)
                     else:
                         out["apds"] = apds
                     yield out

@@ -4,15 +4,19 @@ A dataset is three int8 arrays, ``nodes`` (R, N, Fn), ``edges``
 (R, N, N, E) and ``APDs`` (R, dim_apd).  Two back ends hold them:
 
 * ``hdf5``: one HDF5 file with those three datasets, the reference's and
-  the JAX package's layout (``train.h5``), through ``h5py``;
+  the JAX package's layout (``train.h5``).  A finished file is read by
+  ``data/hdf5.py`` on numpy alone, on every machine; ``h5py`` writes it,
+  and reads and writes the growable ``.chunked`` store of preprocessing;
 * ``npy``: a directory (``train.npd``) of ``nodes.npy``, ``edges.npy`` and
   ``APDs.npy``, written with ``numpy.lib.format.open_memmap``, for machines
   without ``h5py``.
 
 The back end is chosen by the path alone (:func:`backend_of`): ``.h5`` in
-the file name means hdf5, ``.npd`` means npy.  A ``.h5`` path without
-``h5py`` raises; nothing falls through to the other back end.  Every other
-module of the port goes through this one and imports no ``h5py`` itself.
+the file name means hdf5, ``.npd`` means npy.  A write to a ``.h5`` path
+without ``h5py`` raises, and so does a finished ``.h5`` whose datasets are
+chunked or compressed; nothing falls through to the other back end or to
+``h5py``.  Every other module of the port goes through this one and
+imports no ``h5py`` itself.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ from typing import Dict, Mapping, Tuple
 
 import numpy as np
 from numpy.lib.format import open_memmap
+
+from graphinvent_tpu_torch.data import hdf5
 
 NAMES = ("nodes", "edges", "APDs")
 SUFFIXES = {"hdf5": "h5", "npy": "npd"}
@@ -86,24 +92,26 @@ def remove(path: str) -> None:
 # --------------------------------------------------------------------------
 
 class ReadStore:
-    """The three arrays of a finished dataset, sliceable without loading
-    them whole."""
+    """The three arrays of a finished dataset as read-only memmaps,
+    sliceable without loading them whole.  One read path for either back
+    end on every machine: a ``.h5`` file through ``data/hdf5.py``."""
 
     def __init__(self, path: str) -> None:
         self.path = path
         self.backend = backend_of(path)
         if self.backend == "hdf5":
-            self._file = _h5py().File(path, "r", swmr=True)
-            arrays = {name: self._file[name] for name in NAMES}
+            found = hdf5.read_datasets(path)
+            missing = [name for name in NAMES if name not in found]
+            if missing:
+                raise ValueError(f"{path} holds no dataset {missing[0]!r} "
+                                 f"(found {sorted(found)})")
+            arrays = {name: found[name] for name in NAMES}
         else:
-            self._file = None
             arrays = {name: np.load(os.path.join(path, name + ".npy"),
                                     mmap_mode="r") for name in NAMES}
-        self.arrays: Dict[str, object] = arrays
+        self.arrays: Dict[str, np.ndarray] = arrays
 
     def close(self) -> None:
-        if self._file is not None:
-            self._file.close()
         self.arrays = {}
 
     def __enter__(self) -> "ReadStore":

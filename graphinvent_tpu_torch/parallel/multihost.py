@@ -218,11 +218,13 @@ def barrier() -> None:
 
 def all_gather_bytes(a: np.ndarray) -> np.ndarray:
     """(...) array of the same shape and type on every process -> (P, ...),
-    in rank order (``process_allgather``)."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
+    in rank order (``process_allgather``).  It travels as its bytes, so
+    any numpy type goes (the sparse APD wire's uint16 indices too)."""
+    t = torch.from_numpy(np.ascontiguousarray(a).reshape(-1).view(np.uint8))
     out = [torch.empty_like(t) for _ in range(process_count())]
     dist.all_gather(out, t, group=_host_group)
-    return torch.stack(out).numpy()
+    return torch.stack(out).numpy().view(a.dtype).reshape(
+        (len(out),) + a.shape)
 
 
 def all_gather_objects(obj: Any) -> List[Any]:

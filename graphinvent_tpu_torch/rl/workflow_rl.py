@@ -20,14 +20,25 @@ for the fused kernel (``models/fused_enn._cached_flat``, keyed on the
 parameters' addresses and versions), so each forward sees its own model's
 current weights.
 
-A step runs the JAX package's work in its order, one piece after another:
-the agent's rollout, the prior's replay of it, the BASF's rollout and its
-replay, host scoring, the gradient replay and Adam.  The rollouts and the
-two forward-only replays take the fused kernel; the gradient replay takes
-the plain path.  ``FineTuner.step_timings`` holds each piece's seconds per
-step: on a card, between CUDA events recorded where each piece ends and
-read once the step's loss is on the host, so the marks never stall the
-queue.
+A step runs the JAX package's work in its order
+(``graphinvent_tpu/rl/workflow_rl.py:241-264``): the agent's rollout; the
+agent batch's host scoring (analyzer + scoring function) on a worker
+thread while the main thread runs the prior's replay and the BASF's
+rollout; then the BASF batch's scoring on the worker while its replay
+runs; the gradient replay and Adam.  The JAX step gets its overlap from
+``sample_async``; here the rollout (``GraphSampler.sample``, which is
+``finish(sample_async(...))``) reads ``done`` on the host every round and
+so cannot run ahead of the host, and the worker thread gives the overlap
+instead.  One worker keeps the analyzer's writes in order (the agent's
+first).  ``FineTuner.learn`` is the same step with the scoring in
+sequence, for callers that run the pieces themselves; both give the same
+bytes.  The rollouts and the two forward-only replays take the fused
+kernel; the gradient replay takes the plain path.
+``FineTuner.step_timings`` holds each piece's seconds per step: on a
+card, between CUDA events recorded where each piece ends and read once the
+step's loss is on the host, so the marks never stall the queue;
+``FineTuner.scoring_waits`` the host seconds the main thread waited for
+the worker in each overlapped step.
 
 On one process's mesh (the JAX package's single-process mesh fine-tune,
 ``graphinvent_tpu/rl/workflow_rl.py:195-218``) every rank runs the step:
@@ -37,7 +48,9 @@ replay take this rank's trajectory rows under ``edge_sharding`` (nodes
 over ``graph``), the replays' likelihoods are gathered over ``data`` and
 the gradients summed over every rank (``parallel/mesh.py``).  Rank 0
 alone scores and writes; the scores, and so the targets, masks and the
-best score, go to every rank.  The parameters stay whole, as in the JAX
+best score, go to every rank, broadcast from the main thread after the
+worker's join (a collective from the worker would pair with the replay's
+on the other ranks).  The parameters stay whole, as in the JAX
 package (no head split in the fine-tune job).
 """
 
@@ -47,6 +60,7 @@ import copy
 import os
 import sys
 import time
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -259,9 +273,11 @@ class FineTuner:
         self.schedule = onecycle_for_config(cfg, 1)
         self.best_avg_score = 0.0
         self.start_step = start_step
-        # per step: seconds of each piece, the BASF rows past the gate;
-        # forward steps of each forward-only replay
+        # per step: seconds of each piece, the host seconds spent waiting
+        # for the scoring worker, the BASF rows past the gate; forward
+        # steps of each forward-only replay
         self.step_timings: List[Dict[str, float]] = []
+        self.scoring_waits: List[float] = []
         self.basf_gated: List[int] = []
         self.replay_steps: List[int] = []
 
@@ -286,8 +302,16 @@ class FineTuner:
               ) -> Tuple[np.ndarray, np.ndarray]:
         """(scores, uniqueness) of a rollout: rank 0 scores, every rank of
         a mesh gets them."""
-        out = None
-        if self.primary:
+        return self._share(self._score_here(res, step, label, write))
+
+    def _score_here(self, res: SampleResult, step: int, label: str,
+                    write: bool) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        """Rank 0's (scores, uniqueness) of a rollout; None elsewhere.  Host
+        work and no collective, so it may run on the worker thread; its
+        torch calls (the QSAR scorer's) build no autograd graph."""
+        if not self.primary:
+            return None
+        with torch.inference_mode():
             validity, uniqueness, _ = \
                 self.analyzer.evaluate_generated_graphs(
                     res.graphs, res.properly_terminated,
@@ -296,7 +320,11 @@ class FineTuner:
                     label=label, plot=False)
             scores = self.scoring.compute_score(
                 res.graphs, res.properly_terminated, validity, uniqueness)
-            out = (scores, uniqueness)
+        return scores, uniqueness
+
+    def _share(self, out: Optional[Tuple[np.ndarray, np.ndarray]]
+               ) -> Tuple[np.ndarray, np.ndarray]:
+        """Rank 0's scores on every rank of a mesh (the calling thread)."""
         if self.mesh is not None:
             out = multihost.broadcast_object(out)
         return out
@@ -322,27 +350,55 @@ class FineTuner:
         return float(np.mean(scores))
 
     def step(self, step: int) -> float:
-        """One learning step; -> the loss."""
+        """One learning step, the host's scoring beside the device's work
+        (module docstring); -> the loss."""
         clock = StepClock(self.device)
-        res_a = self.rollout(self.agent, step, ROLE_AGENT)
-        clock.mark("agent_rollout")
-        prior_ll = self.replay(self.prior, res_a)
-        clock.mark("prior_replay")
-        res_b = self.rollout(self.basf, step, ROLE_BASF)
-        basf_ll = self.replay(self.basf, res_b)
-        clock.mark("basf_rollout_and_replay")
-        return self.learn(step, res_a, prior_ll, res_b, basf_ll, clock)
+        waited = 0.0
+
+        def join(pending: Optional[Future]) -> Tuple[np.ndarray, np.ndarray]:
+            nonlocal waited
+            t0 = time.perf_counter()
+            out = pending.result() if pending is not None else None
+            waited += time.perf_counter() - t0
+            return self._share(out)
+
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            def submit(res, label, write) -> Optional[Future]:
+                return (pool.submit(self._score_here, res, step, label, write)
+                        if self.primary else None)
+
+            res_a = self.rollout(self.agent, step, ROLE_AGENT)
+            clock.mark("agent_rollout")
+            pending = submit(res_a, "agent", True)
+            prior_ll = self.replay(self.prior, res_a)
+            clock.mark("prior_replay")
+            res_b = self.rollout(self.basf, step, ROLE_BASF)
+            scored_a = join(pending)
+            pending = submit(res_b, "BASF", False)
+            basf_ll = self.replay(self.basf, res_b)
+            clock.mark("basf_rollout_and_replay")
+            scored_b = join(pending)
+        loss = self.learn(step, res_a, prior_ll, res_b, basf_ll, clock,
+                          scored=(scored_a, scored_b))
+        self.scoring_waits.append(waited)
+        return loss
 
     def learn(self, step: int, res_a: SampleResult, prior_ll: np.ndarray,
               res_b: SampleResult, basf_ll: np.ndarray,
-              clock: Optional[StepClock] = None) -> float:
-        """Scores both rollouts, takes the gradient replay and one Adam
-        step at ``schedule(adam.step)``; -> the loss.  Appends the step's
+              clock: Optional[StepClock] = None,
+              scored: Optional[Tuple[Tuple, Tuple]] = None) -> float:
+        """Takes the gradient replay and one Adam step at
+        ``schedule(adam.step)``; -> the loss.  ``scored``: both rollouts'
+        (scores, uniqueness) where the caller has them (``step``), else
+        they are scored here, one after the other.  Appends the step's
         timings to ``step_timings``."""
         cfg, logger = self.cfg, self.logger
         clock = StepClock(self.device) if clock is None else clock
         sigma, alpha = cfg.sigma, cfg.alpha
-        scores_a, unique_a = self.score(res_a, step, "agent", True)
+        if scored is None:
+            scored = (self.score(res_a, step, "agent", True),
+                      self.score(res_b, step, "BASF", False))
+        (scores_a, unique_a), (scores_b, unique_b) = scored
         target_a = prior_ll + sigma * scores_a
         mask_a = unique_a != 0
         if self.primary:
@@ -355,7 +411,6 @@ class FineTuner:
                              step)
             logger.tb_scalar("Fine-tuning/prior_nll",
                              float(-np.mean(prior_ll)), step)
-        scores_b, unique_b = self.score(res_b, step, "BASF", False)
         # loss_b = (basf_ll - (agent_ll + sigma*score))^2, the mask with
         # the score > best_avg_score gate
         target_b = basf_ll - sigma * scores_b

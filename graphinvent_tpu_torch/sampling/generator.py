@@ -33,7 +33,9 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (
+    Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple,
+)
 
 import numpy as np
 import torch
@@ -60,6 +62,15 @@ class SampleResult:
     actions: Optional[np.ndarray] = None   # (batch_size, L) action ids
     t_counts: Optional[np.ndarray] = None  # (batch_size,) actions per graph
     done: Optional[np.ndarray] = None      # 0/1 per row
+
+
+class SampleHandle(NamedTuple):
+    """A batch from ``GraphSampler.sample_async``: its packed buffer on the
+    host (pinned; complete once ``copied`` has fired, None on the CPU) and
+    the host clock when the batch started."""
+    packed: torch.Tensor
+    copied: Optional[Any]
+    started: float
 
 
 # what a generator is for: the fourth entry of its seed sequence
@@ -256,13 +267,26 @@ class GraphSampler:
         self.apply_fn = apply_fn or (lambda model, nodes, edges:
                                      model(nodes, edges))
 
-    def sample_packed(self, params: Params, generator: torch.Generator,
-                      stop_round: Optional[int] = None,
-                      init_state: Optional[Dict[str, torch.Tensor]] = None
-                      ) -> np.ndarray:
-        """Runs one batch; returns the packed buffer on the host.
+    def sample_async(self, params: Params, generator: torch.Generator,
+                     stop_round: Optional[int] = None,
+                     init_state: Optional[Dict[str, torch.Tensor]] = None
+                     ) -> "SampleHandle":
+        """Runs one batch and starts its packed buffer's copy to the host
+        without waiting for it; pair with :meth:`finish`.  The counterpart
+        of the JAX sampler's ``sample_async`` / ``finish``
+        (``graphinvent_tpu/sampling/generator.py:241-256``).
+
+        What differs from JAX: the JAX program runs its whole rollout
+        ahead of the host, while this round loop reads ``done`` on the
+        host every round (``_all_done``), so the rollout itself has run
+        when this returns; only the pack's device-to-host copy (into
+        pinned memory, ``non_blocking``, behind a CUDA event) is still in
+        flight.  A caller overlaps host work with the device by running it
+        on another thread (``rl/workflow_rl.FineTuner.step``).  On a mesh
+        the rows are gathered here, on the calling thread.
         ``stop_round`` / ``init_state``: the two-phase sampler's hooks
         (``_sample_loop``)."""
+        t0 = time.time()
         with torch.inference_mode():
             packed = _pack_outputs(*_sample_loop(
                 self.cfg, params, generator, self.batch_size, self.apply_fn,
@@ -273,13 +297,41 @@ class GraphSampler:
                     gather_data_rows,
                 )
                 packed = gather_data_rows(packed, self.mesh)
-            return packed.cpu().numpy()                 # single transfer
+            if packed.device.type != "cuda":
+                return SampleHandle(packed, None, t0)
+            host = torch.empty(packed.shape, dtype=packed.dtype,
+                               pin_memory=True)
+            host.copy_(packed, non_blocking=True)     # single transfer
+            copied = torch.cuda.Event()
+            copied.record(torch.cuda.current_stream(packed.device))
+            return SampleHandle(host, copied, t0)
+
+    @staticmethod
+    def fetch(handle: "SampleHandle") -> np.ndarray:
+        """The packed buffer of a :meth:`sample_async` handle on the host,
+        once its copy has landed."""
+        if handle.copied is not None:
+            handle.copied.synchronize()
+        return handle.packed.numpy()
+
+    def finish(self, handle: "SampleHandle", quiet: bool = False
+               ) -> SampleResult:
+        """Waits for a :meth:`sample_async` handle's copy and decodes it."""
+        packed = self.fetch(handle)
+        return self._decode_packed(packed, time.time() - handle.started,
+                                   quiet)
+
+    def sample_packed(self, params: Params, generator: torch.Generator,
+                      stop_round: Optional[int] = None,
+                      init_state: Optional[Dict[str, torch.Tensor]] = None
+                      ) -> np.ndarray:
+        """Runs one batch; returns the packed buffer on the host."""
+        return self.fetch(self.sample_async(params, generator, stop_round,
+                                            init_state))
 
     def sample(self, params: Params, generator: torch.Generator,
                quiet: bool = False) -> SampleResult:
-        t0 = time.time()
-        packed = self.sample_packed(params, generator)
-        return self._decode_packed(packed, time.time() - t0, quiet)
+        return self.finish(self.sample_async(params, generator), quiet)
 
     def _decode_packed(self, packed: np.ndarray, elapsed: float,
                        quiet: bool = False) -> SampleResult:

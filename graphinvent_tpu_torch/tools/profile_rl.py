@@ -11,10 +11,13 @@ Runs a fine-tune job through ``Workflow`` in a temporary job dir, for
 ``steps`` + 1 learning steps, and reports the mean of each piece of
 ``FineTuner.step_timings`` over the last ``steps`` (the first step warms
 up): agent_rollout, prior_replay (forward-only, the kernel),
-basf_rollout_and_replay, scoring (analyzer + scoring function on the
-host), grad_forward and grad_backward (the gradient replay, plain path,
-checkpointed every ``--remat-segment`` steps) and adam.  On the card each
-piece runs between CUDA events recorded at its end.  The JAX tool times
+basf_rollout_and_replay, scoring (the rest of the host scoring, which
+runs on a worker thread beside the replays and the BASF rollout, and the
+targets), grad_forward and grad_backward (the gradient replay, plain
+path, checkpointed every ``--remat-segment`` steps) and adam.  On the card
+each piece runs between CUDA events recorded at its end.  The JSON line
+also carries ``scoring_wait_s``, the mean host seconds the step waited for
+that worker.  The JAX tool times
 its jitted programs one by one; here the pieces are the job's own.
 Without ``--checkpoint`` the model has seeded random weights, whose
 rollouts are mostly invalid, so scoring is cheaper than on a trained
@@ -87,6 +90,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     out = {"preset": args.preset, "batch": cfg.batch_size,
            "n": cfg.max_n_nodes, "steps": len(timed), "pieces_s": means,
            "step_s": total, "replay_steps": tuner.replay_steps[2:],
+           "scoring_wait_s": float(np.mean(tuner.scoring_waits[1:])),
            **report}
     print(json.dumps(out), flush=True)
     return out

@@ -438,13 +438,9 @@ class Workflow:
                 whole_adam_state(adam, model, self.mesh))
 
     def _apd_nnz(self) -> int:
-        """The sparse APD wire's slots, or 0 for the dense wire.  Several
-        processes keep the dense wire: the sparse one falls back to dense
-        batch by batch, and one rank falling back while another stays
-        sparse would hand the collective step different shapes."""
+        """The sparse APD wire's slots, or 0 for the dense wire."""
         cfg = self.cfg
-        return (cfg.stream_apd_nnz
-                if cfg.stream_packed and self.n_proc == 1 else 0)
+        return cfg.stream_apd_nnz if cfg.stream_packed else 0
 
     def _mesh_rows(self, batch: Dict[str, np.ndarray]
                    ) -> Dict[str, np.ndarray]:
@@ -505,6 +501,9 @@ class Workflow:
         # bit-packed wire: 8x smaller uploads than float32; the steps
         # unpack on the device (train/step.batch_arrays)
         packed = bool(cfg.stream_packed)
+        # the APD wire (sparse where every row of a dataset fits apd_nnz
+        # slots, else dense) is chosen once a dataset from all its rows,
+        # so every batch and every rank has one layout
         apd_nnz = self._apd_nnz()
         # each rank reads its own round-robin share of the blocks, in
         # batches of its share of the global batch
@@ -517,6 +516,14 @@ class Workflow:
         valid_loader = BlockLoader(valid_ds, local_bs, cfg.block_size,
                                    shuffle=False, seed=cfg.seed,
                                    packed=packed, apd_nnz=apd_nnz, **shard)
+        # which APD wire each dataset took, for callers that check it
+        self.apd_wire = {"train": train_loader.apd_wire,
+                         "valid": valid_loader.apd_wire}
+        if packed:
+            print(f"-- APD wire: train {train_loader.apd_wire}, valid "
+                  f"{valid_loader.apd_wire} (largest rows "
+                  f"{train_ds.max_apd_nnz()} / {valid_ds.max_apd_nnz()} "
+                  f"nonzeros, {apd_nnz} sparse slots).", flush=True)
         train_step = (make_train_step(cfg, schedule, model, adam)
                       if self.mesh.size == 1 else
                       make_sharded_train_step(cfg, schedule, model, adam,

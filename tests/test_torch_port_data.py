@@ -256,9 +256,9 @@ def test_unknown_path_and_missing_h5py_raise(tmp_path, monkeypatch):
 
     monkeypatch.setattr(builtins, "__import__", no_h5py)
     assert not store.have_h5py() and store.default_suffix() == "npd"
-    # nothing falls through to the other back end
-    with pytest.raises(ImportError, match="h5py is not installed"):
-        store.ReadStore(str(tmp_path / "a.h5"))
+    # a finished .h5 reads without h5py (data/hdf5.py); writes still need
+    # it, and nothing falls through to the other back end
+    _assert_same_arrays(_port_arrays(str(tmp_path / "a.h5")), arrays)
     with pytest.raises(ImportError, match="h5py is not installed"):
         store.write_arrays(str(tmp_path / "b.h5"), arrays)
     store.write_arrays(str(tmp_path / "b.npd"), arrays)
@@ -315,7 +315,11 @@ def test_block_loader_batches_are_byte_equal_to_jax(tmp_path, mode):
     store.write_arrays(path, arrays)
     kw = LOADER_MODES[mode]
     jds, pds = jloader.HDFDataset(path), ploader.HDFDataset(path)
-    jl = jloader.BlockLoader(jds, 16, 40, seed=3, **kw)
+    # the port picks one APD wire for the whole dataset (the largest row,
+    # 2 nonzeros here); the JAX loader picks it batch by batch, so where a
+    # row overflows the port's batches are the JAX loader's dense ones
+    jkw = dict(kw, apd_nnz=0) if mode == "sparse-overflow" else kw
+    jl = jloader.BlockLoader(jds, 16, 40, seed=3, **jkw)
     pl = ploader.BlockLoader(pds, 16, 40, seed=3, **kw)
     assert len(pl) == len(jl)
     kinds = set()
@@ -338,9 +342,40 @@ def test_block_loader_batches_are_byte_equal_to_jax(tmp_path, mode):
     if mode == "sparse":
         assert kinds == {("apds_i", "apds_v", "edges_p", "nodes_p", "valid")}
     if mode == "sparse-overflow":      # rows with 2 nonzeros overflow cap 1
-        assert ("apds", "edges_p", "nodes_p", "valid") in kinds
+        assert kinds == {("apds", "edges_p", "nodes_p", "valid")}
+        assert pl.apd_wire == "dense" and pds.max_apd_nnz() == 2
     jds.close()
     pds.close()
+
+
+@pytest.mark.parametrize("cap,wire", [(3, "sparse"), (2, "dense")])
+def test_one_apd_wire_for_every_batch_and_every_shard(tmp_path, cap, wire):
+    """The wire is chosen once from the whole dataset's largest APD row
+    (3 nonzeros, in one row of the last block, which only shard 1 reads):
+    every batch of every epoch of both shards has that one layout."""
+    arrays = _random_arrays(100, seed=8)
+    arrays["APDs"][:] = 0
+    arrays["APDs"][np.arange(100), np.arange(100) % 625] = 1
+    arrays["APDs"][95, [7, 9]] = 2
+    path = str(tmp_path / "train.npd")
+    store.write_arrays(path, arrays)
+    ds = ploader.HDFDataset(path)
+    assert ds.max_apd_nnz() == 3
+    want = ({"apds_i", "apds_v", "edges_p", "nodes_p", "valid"}
+            if wire == "sparse" else {"apds", "edges_p", "nodes_p", "valid"})
+    for shard in (0, 1):
+        loader = ploader.BlockLoader(ds, 8, 20, seed=2, packed=True,
+                                     apd_nnz=cap, shard_index=shard,
+                                     num_shards=2)
+        assert loader.apd_wire == wire
+        for epoch in (0, 1):
+            loader.set_epoch(epoch)
+            batches = list(loader)
+            assert len(batches) == len(loader) > 0
+            assert all(set(b) == want for b in batches)
+    # unpacked, or without sparse slots, the wire is dense
+    assert ploader.BlockLoader(ds, 8, 20, packed=True).apd_wire == "dense"
+    ds.close()
 
 
 def test_block_loader_reads_the_npy_back_end_the_same(tmp_path):
