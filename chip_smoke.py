@@ -20,8 +20,14 @@ Phases (any failure raises and the script exits non-zero):
   5. the generate job end to end through ``graphinvent_tpu_torch.main``
      (seeded random weights saved as model_restart_1.pth, n_samples=2000,
      batch_size=1000): files written, every round's forward through the
-     kernel; then the sampler alone: time per round, and the device's busy
-     share over one batch from torch.profiler;
+     kernel; then (5b) the sampler alone on that model with its head
+     raised (rollouts of ~14 rounds), its rounds replayed from captured
+     CUDA graphs against the eager loop on the same batches: packed bytes,
+     the generator's final state and the launches equal; time per round
+     and molecules/s both ways in turns, a round's device time alone, four
+     rounds each way beside a thread running Python, each way's busy share
+     and kernel names from torch.profiler (a replay's trace must name the
+     fused kernel), device memory;
   6. CUDA-event timings of the kernel (under its launch plan, and under
      the other kind of plan), its plain version and the unfused PyTorch
      path at each launch shape, against the card's bound;
@@ -62,7 +68,8 @@ Phases (any failure raises and the script exits non-zero):
      step taken on the card's SELU branches (SELU's derivative jumps at 0,
      so a pre-activation that rounding puts across 0 moves every gradient
      upstream of it: ``selu_branches``), and every float64 gradient leaf;
-     a seeded sampler batch run twice (byte-equal); a selection on the
+     a seeded sampler batch run twice (byte-equal), and graphed against
+     eager as in 5b (bytes, generator state, launches); a selection on the
      packed edge list as a gather against the one-hot product; time per
      sampler round and per train step, the device's busy share over 3
      profiled steps, peak device memory;
@@ -96,9 +103,12 @@ Phases (any failure raises and the script exits non-zero):
      weights byte-equal;
   13c. timings: a step split into its pieces (CUDA events at each piece's
      end), the host seconds it waited for the scoring worker
-     (``scoring_wait``) and its wall, the device's busy share over a
-     profiled step, the gradient replay's time and peak memory at
-     ``rl_remat_segment`` 1 and 2;
+     (``scoring_wait``) and its wall, with its rollouts graphed and, one
+     step later, on the eager loop; the agent's rollout with the refresh
+     of its captured round (its weights moved in place), replayed and
+     eager; the device's busy
+     share over a profiled step, the gradient replay's time and peak
+     memory at ``rl_remat_segment`` 1 and 2;
   13d. the generate job with the two-phase sampler (n_samples=4000, phase 1
      capped at TWO_PHASE_ROUNDS rounds) on the fine-tune GGNN: launches 10
      a round of every loop, the job's files, and every row that finished in
@@ -587,44 +597,163 @@ def run_generate_job(fused_enn, cfg, model, job: str) -> dict:
     return launches
 
 
-def phase_sampler_alone(cfg, model) -> None:
-    """The sampler without the job's host-chemistry thread: time per round,
-    and the device's busy share over one batch from torch.profiler."""
+def profiled_batch(sampler, model, k: int) -> dict:
+    """One batch under torch.profiler: wall, device busy seconds, kernels
+    by device time."""
     from torch.autograd import DeviceType
-    from graphinvent_tpu_torch.sampling import GraphSampler
     from graphinvent_tpu_torch.sampling.generator import batch_generator
-    log("[5b sampler alone, B=1000]")
-    sampler = GraphSampler(cfg, B, device=torch.device("cuda"))
-    sampler.sample_packed(model, batch_generator(0, 99, torch.device("cuda")))
-    rounds = secs = 0
-    for k in range(3):
-        res = sampler.sample(model, batch_generator(0, 100 + k,
-                                                    torch.device("cuda")),
-                             quiet=True)
-        rounds += res.n_rounds
-        secs += res.elapsed_s
-    log(f"    {rounds} rounds in {secs:.4f} s: {1e3 * secs / rounds:.3f} ms "
-        f"per round, {3 * B / secs:.1f} molecules/s")
+    dev = torch.device("cuda")
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
         t0 = time.time()
-        res = sampler.sample(model, batch_generator(0, 200,
-                                                    torch.device("cuda")),
-                             quiet=True)
+        res = sampler.sample(model, batch_generator(0, k, dev), quiet=True)
+        torch.cuda.synchronize()
         wall = time.time() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e6
-    if not kernels:
-        log("    device busy share: not measured (no device events traced)")
-        return
-    log(f"    profiled batch: {res.n_rounds} rounds, wall {wall:.4f} s, "
-        f"device busy {busy:.4f} s ({100 * busy / wall:.1f}%), "
-        f"{len(kernels)} kernel names")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
-        log(f"      {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
-            f"{e.key[:70]}")
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    return dict(rounds=res.n_rounds, wall=wall, kernels=kernels,
+                busy=sum(e.self_device_time_total for e in kernels) / 1e6)
+
+
+def graphed_vs_eager(cfg, model, seeds, what: str) -> dict:
+    """The same seeded batches on a graphed sampler and an eager one, in
+    turns eager, graphed, graphed, eager: packed bytes, the generator's
+    final state and the launches must be equal; -> per way [rounds,
+    seconds] and the first graphed batch's seconds (with its capture)."""
+    from graphinvent_tpu_torch.models import fused_enn
+    from graphinvent_tpu_torch.sampling import GraphSampler
+    from graphinvent_tpu_torch.sampling.generator import (
+        _packed_rounds, batch_generator,
+    )
+    dev = torch.device("cuda")
+    ways = {"graphed": GraphSampler(cfg, B, device=dev),
+            "eager": GraphSampler(cfg, B, device=dev, _eager=True)}
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ways["graphed"].sample_packed(model, batch_generator(0, 99, dev))
+    torch.cuda.synchronize()
+    first = time.time() - t0
+    ways["eager"].sample_packed(model, batch_generator(0, 99, dev))
+    got = {w: [] for w in ways}
+    times = {w: [0, 0.0] for w in ways}
+    for way in ("eager", "graphed", "graphed", "eager"):
+        for k in seeds:
+            gen = batch_generator(0, k, dev)
+            fused_enn.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            packed = ways[way].sample_packed(model, gen)
+            secs = time.time() - t0
+            times[way][0] += _packed_rounds(cfg, packed)
+            times[way][1] += secs
+            got[way].append((packed.tobytes(), gen.get_state(),
+                             fused_enn.launch_counts()))
+    for (pg, sg, lg), (pe, se, le) in zip(got["graphed"], got["eager"]):
+        check(pg == pe, f"{what}: graphed and eager batches differ")
+        check(torch.equal(sg, se),
+              f"{what}: the generator ends in another state")
+        check(lg == le, f"{what}: launches graphed {lg} != eager {le}")
+    check(ways["graphed"]._graphs.captures == 1,
+          f"{what}: {ways['graphed']._graphs.captures} captures")
+    return dict(ways=ways, times=times, first=first, batches=len(got["eager"]))
+
+
+def python_thread():
+    """A thread that runs Python until stopped, holding the GIL as the
+    analyzer's Python does (a stand-in for it); -> its stop function."""
+    import threading
+    stop = threading.Event()
+
+    def spin():
+        while not stop.is_set():
+            sum(i * i for i in range(20000))
+
+    thread = threading.Thread(target=spin)
+    thread.start()
+
+    def done():
+        stop.set()
+        thread.join(timeout=60)
+        check(not thread.is_alive(), "the Python thread did not stop")
+    return done
+
+
+def phase_sampler_alone(cfg, model) -> None:
+    """The sampler without the job's host-chemistry thread, on phase 5's
+    model with its head raised (``raise_head``: rollouts of ~14 rounds, as
+    a trained model's), its rounds replayed from captured CUDA graphs
+    against the eager loop on the same batches (``graphed_vs_eager``):
+    ms a round both ways, a round's device time alone (back-to-back
+    replays between CUDA events), four rounds each way beside a thread
+    that runs Python, each way's busy share and kernels from torch.profiler
+    (the benchmark reads the fused kernel's device time by its name),
+    device memory."""
+    from graphinvent_tpu_torch.sampling.generator import (
+        _packed_rounds, batch_generator,
+    )
+    log("[5b sampler alone, B=1000, head raised: graphed rounds against the "
+        "eager loop]")
+    dev = torch.device("cuda")
+    model = raise_head(cfg, copy.deepcopy(model), 3, 3.0, 1.0)
+    out = graphed_vs_eager(cfg, model, (100, 101, 102), "GGNN")
+    times = out["times"]
+    ms = {w: 1e3 * t[1] / t[0] for w, t in times.items()}
+    log(f"    3 batches twice each way, in turns: packed bytes, generator "
+        f"state and launches equal ({out['batches']} batches a way); the "
+        f"first graphed batch, with its capture, {out['first']:.4f} s")
+    for w, (rounds, secs) in times.items():
+        log(f"    {w:<8} {rounds} rounds in {secs:.4f} s: {ms[w]:.3f} ms a "
+            f"round, {6 * B / secs:.1f} molecules/s")
+    log(f"    a round graphed is {ms['eager'] / ms['graphed']:.2f}x faster")
+    entry = out["ways"]["graphed"]._graphs.entries[-1]
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    with torch.inference_mode():
+        marks[0].record()
+        for _ in range(20):
+            entry.graphs[0].replay()             # the forward
+            entry.graphs[1].replay()             # the rest of the round
+        marks[1].record()
+    torch.cuda.synchronize()
+    log(f"    a round's device time, 20 replays back to back (CUDA events, "
+        f"no host read between): {marks[0].elapsed_time(marks[1]) / 20:.3f}"
+        " ms")
+    for w, sampler in out["ways"].items():
+        # capped at 4 rounds: beside such a thread an eager round has read
+        # 0.09 to 1.6 s on the H100 machine's host
+        stop = python_thread()
+        t0 = time.time()
+        packed = sampler.sample_packed(model, batch_generator(0, 150, dev),
+                                       stop_round=4)
+        secs = time.time() - t0
+        stop()
+        rounds = _packed_rounds(cfg, packed)
+        log(f"    {w:<8} beside a thread running Python: {rounds} rounds "
+            f"(capped at 4), {1e3 * secs / rounds:.3f} ms a round")
+    torch.cuda.synchronize()
+    log(f"    memory (the process so far): allocated "
+        f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB, max allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f}, reserved "
+        f"{torch.cuda.memory_reserved() / 2**20:.1f}, max reserved "
+        f"{torch.cuda.max_memory_reserved() / 2**20:.1f}")
+    for w, sampler in out["ways"].items():
+        pr = profiled_batch(sampler, model, 200)
+        if not pr["kernels"]:
+            log(f"    {w}: device busy share not measured (no device events "
+                "traced)")
+            continue
+        names = [e.key for e in pr["kernels"]]
+        fused = [n for n in names if "fused_enn" in n]
+        log(f"    {w} profiled batch: {pr['rounds']} rounds, wall "
+            f"{pr['wall']:.4f} s, device busy {pr['busy']:.4f} s "
+            f"({100 * pr['busy'] / pr['wall']:.1f}%), {len(names)} kernel "
+            f"names, fused_enn kernels among them: {fused}")
+        for e in pr["kernels"][:6]:
+            log(f"      {e.self_device_time_total / 1e3:9.3f} ms  "
+                f"{e.count:5d}x  {e.key[:70]}")
+        check(bool(fused), f"{w}: no fused_enn kernel named in the trace")
 
 
 # --------------------------------------------------------------------------
@@ -990,7 +1119,9 @@ def phase_train_numerics(fused_enn, cfg, job: str, data: dict) -> None:
              for site in main_path_sites(model)]
     cached = lambda owner, mlps: fused_enn._cached_flat(
         owner, mlps, torch.bfloat16, dev)
-    old = {name: cached(owner, mlps) for name, owner, mlps in sites}
+    # a copy: the cache rewrites its tensors when the weights move in place
+    old = {name: cached(owner, mlps).slabs.clone()
+           for name, owner, mlps in sites}
     fused_enn.reset_launch_counts()
     perm = device_data.epoch_permutation(dtrain.n_rows, B,
                                          np.random.default_rng(0))
@@ -1007,7 +1138,7 @@ def phase_train_numerics(fused_enn, cfg, job: str, data: dict) -> None:
         now = cached(owner, mlps)
         fresh = fused_enn.flatten_weights(fused_enn.stacked_layers(mlps),
                                           torch.bfloat16, dev)
-        check(not torch.equal(now.slabs, old[name].slabs),
+        check(not torch.equal(now.slabs, old[name]),
               f"{name}: 8 train steps left its bf16 weights unchanged")
         check(torch.equal(now.slabs, fresh.slabs)
               and torch.equal(now.w, fresh.w) and torch.equal(now.b, fresh.b),
@@ -1534,8 +1665,13 @@ def phase_model_numerics(fused_enn, models, jobs: dict, data: dict) -> None:
               f"{name}: a seeded sampler batch is not reproducible")
         check(first.tobytes() != other.tobytes(),
               f"{name}: two seeds sampled the same batch")
+        out = graphed_vs_eager(bf_cfg, model, (7, 8), name)
+        ms = {w: 1e3 * t[1] / t[0] for w, t in out["times"].items()}
         log(f"      {name}: seeded sampler batch twice: byte-equal "
-            f"({first.nbytes} bytes)")
+            f"({first.nbytes} bytes); graphed against eager on 2 batches "
+            f"twice each way: bytes, generator state and launches equal, "
+            f"{out['times']['graphed'][0] // 2} rounds, ms a round graphed "
+            f"{ms['graphed']:.3f} / eager {ms['eager']:.3f}")
 
     # on the packed edge list a selection is a gather: the same values as
     # the product with the one-hot incidence matrix
@@ -2038,21 +2174,52 @@ def phase_fine_tune_timings(tuner) -> None:
     from graphinvent_tpu_torch.rl.workflow_rl import (
         ROLE_AGENT, ROLE_BASF, rl_loss,
     )
+    from graphinvent_tpu_torch.sampling import GraphSampler
     log("[13c fine-tune step timings, bf16, B=1000]")
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    t0 = time.time()
-    start.record()
-    tuner.step(4)
-    end.record()
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    times = tuner.step_timings[-1]
-    log(f"    one step: {wall:.3f} s wall, {start.elapsed_time(end):.1f} ms "
-        "between CUDA events; " + ", ".join(
-            f"{k} {v:.3f} s" for k, v in times.items())
-        + f"; scoring_wait {tuner.scoring_waits[-1]:.3f} s")
+    graphed = tuner.sampler
+    eager = GraphSampler(tuner.cfg, tuner.cfg.batch_size, device=tuner.device,
+                         _eager=True)
+    for step_no, way in ((4, "graphed"), (5, "eager")):
+        tuner.sampler = graphed if way == "graphed" else eager
+        before = graphed._graphs.captures, graphed._graphs.refreshes
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        start.record()
+        tuner.step(step_no)
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        times = tuner.step_timings[-1]
+        captured = graphed._graphs.captures - before[0]
+        refreshed = graphed._graphs.refreshes - before[1]
+        log(f"    one step, rollouts {way} ({captured} captures, {refreshed} "
+            "refreshes): "
+            f"{wall:.3f} s wall, {start.elapsed_time(end):.1f} ms "
+            "between CUDA events; " + ", ".join(
+                f"{k} {v:.3f} s" for k, v in times.items())
+            + f"; scoring_wait {tuner.scoring_waits[-1]:.3f} s")
+    tuner.sampler = graphed
+    # the agent's rollout after an Adam step (its weights moved in place:
+    # a refresh of its captured round), the same rollout replayed, and on
+    # the eager loop
+    secs = {}
+    before = graphed._graphs.captures, graphed._graphs.refreshes
+    for tag, sampler in (("with its refresh", graphed), ("replayed", graphed),
+                         ("eager", eager), ("eager again", eager)):
+        tuner.sampler = sampler
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = tuner.rollout(tuner.agent, 6, ROLE_AGENT)
+        secs[tag] = time.time() - t0
+    tuner.sampler = graphed
+    log(f"    the agent's rollout after the step ({res.n_rounds} rounds), s: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in secs.items())
+        + f"; the refresh's cost about "
+        f"{secs['with its refresh'] - secs['replayed']:.4f} s ("
+        f"{graphed._graphs.captures - before[0]} captures, "
+        f"{graphed._graphs.refreshes - before[1]} refreshes)")
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:

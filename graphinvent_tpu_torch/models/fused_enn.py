@@ -59,7 +59,8 @@ _BIAS_BYTES = 2 * MAX_CHUNKS * CHUNK * 2       # a pass's biases, bf16
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # launches of the kernel, per wrapper, per weight layout (E, I, ..., O) and
-# per (layout, rows)
+# per (layout, rows); a replay of a captured CUDA graph adds what its
+# capture recorded (:func:`credit_launches`)
 LAUNCHES: Dict[str, int] = {"fused_stacked_mlp": 0, "fused_mlp": 0}
 LAUNCHES_BY_LAYOUT: Dict[Tuple[int, ...], int] = {}
 LAUNCHES_BY_SHAPE: Dict[Tuple[Tuple[int, ...], int], int] = {}
@@ -74,6 +75,30 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
     LAUNCHES_BY_LAYOUT.clear()
     LAUNCHES_BY_SHAPE.clear()
+
+
+Counts = Tuple[Dict, Dict, Dict]
+
+
+def launch_counts(since: Optional[Counts] = None) -> Counts:
+    """A copy of the three counters (by wrapper, by layout, by shape), or,
+    given such a copy, what each gained since (counts that did not move
+    left out)."""
+    now = dict(LAUNCHES), dict(LAUNCHES_BY_LAYOUT), dict(LAUNCHES_BY_SHAPE)
+    if since is None:
+        return now
+    return tuple({k: v - old.get(k, 0) for k, v in new.items()
+                  if v != old.get(k, 0)} for new, old in zip(now, since))
+
+
+def credit_launches(delta: Counts) -> None:
+    """Counts the launches of one replay of a captured CUDA graph: what
+    its capture recorded (``delta``, as ``launch_counts(since=...)`` gives
+    it; ``sampling/round_graphs.py``)."""
+    for live, gained in zip((LAUNCHES, LAUNCHES_BY_LAYOUT, LAUNCHES_BY_SHAPE),
+                            delta):
+        for k, v in gained.items():
+            live[k] = live.get(k, 0) + v
 
 
 def _nvcc() -> str:
@@ -302,18 +327,35 @@ def _cached_flat(owner: torch.nn.Module, mlps: Sequence[torch.nn.Module],
     """Flattens once per model, dtype and device; rebuilt only when a
     parameter is replaced or modified in place (parameters made under
     ``inference_mode`` track no version: replace those, do not edit them).
-    ``layers``: a function giving the layers to flatten, by default the
-    towers of ``mlps`` stacked."""
+    After an edit in place (only versions moved) the new values go into
+    the same tensors, which a captured CUDA graph may read
+    (``sampling/round_graphs.py``).  ``layers``: a function giving the
+    layers to flatten, by default the towers of ``mlps`` stacked."""
     params = [p for m in mlps for p in m.parameters()]
-    key = (dtype, device, tuple(
-        (p.data_ptr(), tuple(p.shape),
-         -1 if p.is_inference() else p._version) for p in params))
+    where = tuple((p.data_ptr(), tuple(p.shape)) for p in params)
+    versions = tuple(-1 if p.is_inference() else p._version for p in params)
+    key = (dtype, device, where, versions)
     cached = owner.__dict__.get("_fused_flat")
     if cached is None or cached[0] != key:
         made = layers() if layers is not None else stacked_layers(mlps)
-        cached = (key, flatten_weights(made, dtype, device))
+        flat = flatten_weights(made, dtype, device)
+        if cached is not None and cached[0][:3] == key[:3]:
+            with torch.inference_mode():    # the tensors may be inference's
+                for old, new in zip(cached[1], flat):
+                    if isinstance(old, torch.Tensor):
+                        old.copy_(new)
+            flat = cached[1]
+        cached = (key, flat)
         owner.__dict__["_fused_flat"] = cached
     return cached[1]
+
+
+def cached_flats(model: torch.nn.Module) -> List[FlatWeights]:
+    """The flattened weights that ``model``'s kernel sites hold now: what
+    a CUDA graph captured on a hit of :func:`_cached_flat` reads, and must
+    keep alive."""
+    return [m.__dict__["_fused_flat"][1] for m in model.modules()
+            if "_fused_flat" in m.__dict__]
 
 
 # --------------------------------------------------------------------------

@@ -18,7 +18,11 @@ classes and applies it.  The same contract as the JAX sampler:
 Actions are drawn by Gumbel-max with an explicit ``torch.Generator``, in
 place of ``jax.random.categorical`` with a key: the same distribution,
 other numbers.  The early exit checks ``done.all()`` on the host once per
-round, as the JAX while_loop's condition does on the device.
+round, as the JAX while_loop's condition does on the device.  On a CUDA
+device each round is two replays of captured CUDA graphs
+(``sampling/round_graphs.py``), with that check between rounds: the JAX
+package jits the whole loop, and an eager round here spends most of its
+time issuing launches.
 
 On one process's mesh (``mesh``) the rows of a batch split over the
 ``data`` axis and are replicated over ``model`` and ``graph``, as in the
@@ -45,6 +49,9 @@ from graphinvent_tpu_torch.chem.molgraph import MolGraph
 from graphinvent_tpu_torch.config import GraphInventConfig
 from graphinvent_tpu_torch.sampling.actions import (
     apply_actions, decode_actions, select_rows,
+)
+from graphinvent_tpu_torch.sampling.round_graphs import (
+    RoundGraphs, keeps_eager_loop,
 )
 from graphinvent_tpu_torch.utils.device import compute_dtype, resolve_device
 
@@ -104,37 +111,35 @@ def batch_generator(seed: int, batch_idx: int, device: torch.device
     return seeded_generator([seed, batch_idx], device)
 
 
-def _sample_loop(cfg: GraphInventConfig, params: Params,
-                 generator: torch.Generator, batch_size: int,
-                 apply_fn: Callable, device: torch.device,
-                 stop_round: Optional[int] = None,
-                 init_state: Optional[Dict[str, torch.Tensor]] = None,
-                 mesh: Any = None) -> Tuple[torch.Tensor, ...]:
-    """``stop_round`` / ``init_state`` are the two-phase sampler's hooks
-    (``sampling/two_phase.py``): phase 1 stops after ``stop_round`` rounds
-    (rows still live then come back with done=0); the continuation starts
-    the same loop from ``init_state``, the carried state of a batch of such
-    rows (nodes, edges, n_nodes, t, ll, acts, done, term), with rounds
-    counted from 0 again.  A carried row's actions are drawn from the same
-    distribution as in one uninterrupted loop.  ``mesh``: this rank's rows
-    of the batch on the data axis (the module docstring)."""
-    rows = slice(0, batch_size)
-    if mesh is not None and mesh.size > 1:
-        from graphinvent_tpu_torch.parallel.mesh import data_rows
-        rows = data_rows(batch_size, mesh)
-    B = rows.stop - rows.start
+class RoundState(NamedTuple):
+    """A batch's carried state between rounds (``init_state``'s keys)."""
+    nodes: torch.Tensor      # (B, N, Fn), compute dtype
+    edges: torch.Tensor      # (B, N, N, E), compute dtype
+    n_nodes: torch.Tensor    # (B,) long
+    t: torch.Tensor          # (B,) long, actions taken
+    ll: torch.Tensor         # (B, L) float32, log p of each action
+    acts: torch.Tensor       # (B, L) long, action ids
+    done: torch.Tensor       # (B,) bool
+    term: torch.Tensor       # (B,) bool
+
+
+def _model_forward(model, nodes: torch.Tensor, edges: torch.Tensor
+                   ) -> torch.Tensor:
+    """The sampler's default ``apply_fn``: the model's forward."""
+    return model(nodes, edges)
+
+
+def _initial_state(cfg: GraphInventConfig, B: int, device: torch.device,
+                   init_state: Optional[Dict[str, torch.Tensor]]
+                   ) -> RoundState:
     N, Fn, E = cfg.max_n_nodes, cfg.n_node_features, cfg.n_edge_features
     L = cfg.gen_action_budget
-    max_rounds = L + 4
-    if stop_round is not None:
-        max_rounds = min(max_rounds, stop_round)
     dt = compute_dtype(cfg)
-
     state = dict(
         nodes=torch.zeros(B, N, Fn, dtype=dt, device=device),
         edges=torch.zeros(B, N, N, E, dtype=dt, device=device),
         n_nodes=torch.zeros(B, dtype=torch.long, device=device),
-        t=torch.zeros(B, dtype=torch.long, device=device),  # actions taken
+        t=torch.zeros(B, dtype=torch.long, device=device),
         ll=torch.zeros(B, L, dtype=torch.float32, device=device),
         acts=torch.zeros(B, L, dtype=torch.long, device=device),
         done=torch.zeros(B, dtype=torch.bool, device=device),
@@ -142,42 +147,93 @@ def _sample_loop(cfg: GraphInventConfig, params: Params,
     if init_state is not None:
         state.update({k: v.to(device, state[k].dtype, copy=True)
                       for k, v in init_state.items()})
-    nodes, edges, n_nodes, t, ll, acts, done, term = state.values()
-    rounds = 0
+    return RoundState(**state)
 
-    while rounds < max_rounds and not _all_done(done, mesh):
-        logits = apply_fn(params, nodes, edges).float()
-        logp = torch.log_softmax(logits, dim=1)
-        u = torch.rand((batch_size, logits.shape[1]), generator=generator,
-                       device=device)[rows]
-        action = torch.argmax(logits - torch.log(-torch.log(u)), dim=1)
-        logp_sel = select_rows(logp, action)
 
-        live = ~done
-        dec = decode_actions(cfg, action, n_nodes, edges)
-        overflow = t >= (L - 1)
-        invalid = live & (dec.invalid | (overflow & ~dec.is_term))
-        done_term = live & dec.is_term & ~invalid
+def _round_step(cfg: GraphInventConfig, logits: torch.Tensor,
+                generator: torch.Generator, batch_size: int, rows: slice,
+                s: RoundState) -> RoundState:
+    """One round after the forward: draws an action per row from
+    ``logits``, decodes it, records it in the row's slot (``ll`` and
+    ``acts`` in place) and applies it.  ``batch_size``: the global batch,
+    whose uniforms every rank draws; ``rows``: this rank's."""
+    L = cfg.gen_action_budget
+    logits = logits.float()
+    logp = torch.log_softmax(logits, dim=1)
+    u = torch.rand((batch_size, logits.shape[1]), generator=generator,
+                   device=logits.device)[rows]
+    action = torch.argmax(logits - torch.log(-torch.log(u)), dim=1)
+    logp_sel = select_rows(logp, action)
 
-        # record this action's log-likelihood and id in slot t (live rows)
-        slot = t.clamp(0, L - 1)[:, None]
-        ll.scatter_(1, slot, torch.where(
-            live, logp_sel, ll.gather(1, slot)[:, 0])[:, None])
-        acts.scatter_(1, slot, torch.where(
-            live, action, acts.gather(1, slot)[:, 0])[:, None])
-        t = t + live.long()
+    live = ~s.done
+    dec = decode_actions(cfg, action, s.n_nodes, s.edges)
+    overflow = s.t >= (L - 1)
+    invalid = live & (dec.invalid | (overflow & ~dec.is_term))
+    done_term = live & dec.is_term & ~invalid
 
-        # apply actions only to live, continuing graphs
-        cont = live & ~invalid & ~dec.is_term
-        dec = dec._replace(is_add=dec.is_add & cont,
-                           is_conn=dec.is_conn & cont)
-        nodes, edges, n_nodes = apply_actions(cfg, dec, nodes, edges, n_nodes)
+    # record this action's log-likelihood and id in slot t (live rows)
+    slot = s.t.clamp(0, L - 1)[:, None]
+    s.ll.scatter_(1, slot, torch.where(
+        live, logp_sel, s.ll.gather(1, slot)[:, 0])[:, None])
+    s.acts.scatter_(1, slot, torch.where(
+        live, action, s.acts.gather(1, slot)[:, 0])[:, None])
 
-        done = done | done_term | invalid
-        term = term | done_term
-        rounds += 1
-    return (nodes.to(torch.uint8), edges.to(torch.uint8), n_nodes, ll, acts,
-            term.to(torch.uint8), done.to(torch.uint8), t, rounds)
+    # apply actions only to live, continuing graphs
+    cont = live & ~invalid & ~dec.is_term
+    dec = dec._replace(is_add=dec.is_add & cont, is_conn=dec.is_conn & cont)
+    nodes, edges, n_nodes = apply_actions(cfg, dec, s.nodes, s.edges,
+                                          s.n_nodes)
+    return RoundState(nodes, edges, n_nodes, s.t + live.long(), s.ll,
+                      s.acts, s.done | done_term | invalid,
+                      s.term | done_term)
+
+
+def _sample_loop(cfg: GraphInventConfig, params: Params,
+                 generator: torch.Generator, batch_size: int,
+                 apply_fn: Callable, device: torch.device,
+                 stop_round: Optional[int] = None,
+                 init_state: Optional[Dict[str, torch.Tensor]] = None,
+                 mesh: Any = None, graphs: Optional[RoundGraphs] = None
+                 ) -> Tuple[torch.Tensor, ...]:
+    """``stop_round`` / ``init_state`` are the two-phase sampler's hooks
+    (``sampling/two_phase.py``): phase 1 stops after ``stop_round`` rounds
+    (rows still live then come back with done=0); the continuation starts
+    the same loop from ``init_state``, the carried state of a batch of such
+    rows (nodes, edges, n_nodes, t, ll, acts, done, term), with rounds
+    counted from 0 again.  A carried row's actions are drawn from the same
+    distribution as in one uninterrupted loop.  ``mesh``: this rank's rows
+    of the batch on the data axis (the module docstring).
+
+    ``graphs``: the sampler's captured rounds.  With them, on a CUDA device
+    and no mesh, each round is two replays of captured CUDA graphs
+    (``sampling/round_graphs.py``, which says which models and hooks keep
+    the eager loop); the rounds run, the bytes and the generator's final
+    state are the eager loop's."""
+    rows = slice(0, batch_size)
+    if mesh is not None and mesh.size > 1:
+        from graphinvent_tpu_torch.parallel.mesh import data_rows
+        rows = data_rows(batch_size, mesh)
+    max_rounds = cfg.gen_action_budget + 4
+    if stop_round is not None:
+        max_rounds = min(max_rounds, stop_round)
+    state = _initial_state(cfg, rows.stop - rows.start, device, init_state)
+
+    if (graphs is not None and device.type == "cuda"
+            and (mesh is None or mesh.size == 1)
+            and apply_fn is _model_forward
+            and not keeps_eager_loop(params)):
+        state, rounds = graphs.run(cfg, params, generator, batch_size, state,
+                                   max_rounds, _round_step)
+    else:
+        rounds = 0
+        while rounds < max_rounds and not _all_done(state.done, mesh):
+            logits = apply_fn(params, state.nodes, state.edges)
+            state = _round_step(cfg, logits, generator, batch_size, rows,
+                                state)
+            rounds += 1
+    return (state.nodes.to(torch.uint8), state.edges.to(torch.uint8),
+            state.n_nodes, state.ll, state.acts, state.term.to(torch.uint8),
+            state.done.to(torch.uint8), state.t, rounds)
 
 
 def _all_done(done: torch.Tensor, mesh: Any) -> bool:
@@ -254,18 +310,21 @@ class GraphSampler:
     def __init__(self, cfg: GraphInventConfig, batch_size: int,
                  apply_fn: Optional[Callable] = None,
                  device: Optional[torch.device] = None,
-                 mesh: Any = None) -> None:
+                 mesh: Any = None, _eager: bool = False) -> None:
         """``apply_fn(params, nodes, edges) -> logits``; by default the
         model forward ``params(nodes, edges)``.  ``mesh``: one process's
         mesh, whose ranks all sample every batch together (rows over
-        ``data``); every rank gets the whole batch."""
+        ``data``); every rank gets the whole batch.  On a CUDA device a
+        round is two replays of captured CUDA graphs (``_sample_loop``);
+        ``_eager`` keeps the eager loop there, for the tests that hold
+        the two against each other."""
         self.cfg = cfg
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.batch_size = batch_size
         self.device = device if device is not None else resolve_device(
             cfg.device)
-        self.apply_fn = apply_fn or (lambda model, nodes, edges:
-                                     model(nodes, edges))
+        self.apply_fn = apply_fn or _model_forward
+        self._graphs = None if _eager else RoundGraphs()
 
     def sample_async(self, params: Params, generator: torch.Generator,
                      stop_round: Optional[int] = None,
@@ -278,9 +337,10 @@ class GraphSampler:
 
         What differs from JAX: the JAX program runs its whole rollout
         ahead of the host, while this round loop reads ``done`` on the
-        host every round (``_all_done``), so the rollout itself has run
-        when this returns; only the pack's device-to-host copy (into
-        pinned memory, ``non_blocking``, behind a CUDA event) is still in
+        host every round (``_all_done``; between two replays of the
+        captured round on the card), so the rollout itself has run when
+        this returns; only the pack's device-to-host copy (into pinned
+        memory, ``non_blocking``, behind a CUDA event) is still in
         flight.  A caller overlaps host work with the device by running it
         on another thread (``rl/workflow_rl.FineTuner.step``).  On a mesh
         the rows are gathered here, on the calling thread.
@@ -291,7 +351,7 @@ class GraphSampler:
             packed = _pack_outputs(*_sample_loop(
                 self.cfg, params, generator, self.batch_size, self.apply_fn,
                 self.device, stop_round=stop_round, init_state=init_state,
-                mesh=self.mesh))
+                mesh=self.mesh, graphs=self._graphs))
             if self.mesh is not None:
                 from graphinvent_tpu_torch.parallel.mesh import (
                     gather_data_rows,

@@ -267,3 +267,158 @@ def test_train_step_launches_no_kernel_and_eval_steps_ten(cuda,
     tol = 1e-4 if compute_dtype == "float32" else 0.05
     assert abs(loss.item() - plain.item()) <= tol
     assert nll.shape == (96,) and bool(torch.isfinite(nll).all())
+
+
+# --------------------------------------------------------------------------
+# the sampler's round as a captured CUDA graph (sampling/round_graphs.py)
+# against the eager loop: the same bytes, generator state and launches
+# --------------------------------------------------------------------------
+
+SAMPLED_MODELS = ("MNN", "S2V", "AttS2V", "GGNN", "AttGGNN", "EMN")
+
+
+def _sampled_model(cuda, name, compute_dtype="bfloat16"):
+    """``preset(name)`` at B=1000, N=13 with seeded weights and the APD
+    head's "add to node 0" and "terminate" logits raised by 4 and 2, so
+    that rollouts build graphs for several rounds."""
+    from graphinvent_tpu_torch.config import preset
+    from graphinvent_tpu_torch.models import build_model
+    cfg = preset(name, device="cuda", compute_dtype=compute_dtype)
+    model = build_model(cfg, torch.Generator().manual_seed(0)).to(cuda).eval()
+    head = model.APDReadout
+    with torch.no_grad():
+        head.fAddNet2.linears[-1].bias[:cfg.len_f_add_per_node] += 4.0
+        head.fTermNet2.linears[-1].bias[:] += 2.0
+    return cfg, model
+
+
+def _sample_both(cfg, model, cuda, batches=(0, 1), **kw):
+    """Each batch on the graphed and on the eager sampler: (packed bytes,
+    the generator's state after, launch counts) per batch and way."""
+    from graphinvent_tpu_torch.sampling import GraphSampler
+    from graphinvent_tpu_torch.sampling.generator import batch_generator
+    out = {}
+    for eager in (False, True):
+        sampler = GraphSampler(cfg, cfg.batch_size, device=cuda,
+                               _eager=eager)
+        rows = []
+        for k in batches:
+            gen = batch_generator(3, k, cuda)
+            fused_enn.reset_launch_counts()
+            packed = sampler.sample_packed(model, gen, **kw)
+            rows.append((packed, gen.get_state(), fused_enn.launch_counts()))
+        out[eager] = rows
+        if not eager:
+            out["captures"] = sampler._graphs.captures
+    return out
+
+
+def _assert_same(out):
+    for (pg, sg, lg), (pe, se, le) in zip(out[False], out[True]):
+        assert pg.tobytes() == pe.tobytes()
+        assert torch.equal(sg, se)
+        assert lg == le
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("name", SAMPLED_MODELS)
+def test_graphed_sampler_matches_the_eager_loop(cuda, name, compute_dtype):
+    from graphinvent_tpu_torch.sampling.generator import _packed_rounds
+    cfg, model = _sampled_model(cuda, name, compute_dtype)
+    out = _sample_both(cfg, model, cuda)
+    _assert_same(out)
+    assert out["captures"] == 1            # the second batch replays
+    rounds = [_packed_rounds(cfg, p) for p, _, _ in out[False]]
+    assert min(rounds) >= 3
+    if name == "GGNN":
+        assert sum(out[False][0][2][0].values()) == 10 * rounds[0]
+
+
+@pytest.mark.gpu
+def test_graphed_sampler_two_phase_hooks(cuda):
+    from graphinvent_tpu_torch.sampling.generator import _row_layout
+    from graphinvent_tpu_torch.sampling.two_phase import _device_unpack_state
+    cfg, model = _sampled_model(cuda, "GGNN")
+    first = _sample_both(cfg, model, cuda, batches=(0,), stop_round=2)
+    _assert_same(first)
+    packed = first[False][0][0]
+    d0 = _row_layout(cfg)["done"][0]
+    assert (packed[:, d0] == 0).any()      # rows still live after round 2
+    init = _device_unpack_state(cfg, torch.from_numpy(packed).to(cuda))
+    _assert_same(_sample_both(cfg, model, cuda, batches=(5,),
+                              init_state=init))
+
+
+@pytest.mark.gpu
+def test_graphed_sampler_recaptures_on_new_weights_and_path(cuda):
+    from graphinvent_tpu_torch.sampling import GraphSampler
+    from graphinvent_tpu_torch.sampling.generator import batch_generator
+    cfg, model = _sampled_model(cuda, "GGNN")
+    graphed = GraphSampler(cfg, cfg.batch_size, device=cuda)
+    eager = GraphSampler(cfg, cfg.batch_size, device=cuda, _eager=True)
+
+    def both(k):
+        return (graphed.sample_packed(model, batch_generator(4, k, cuda)),
+                eager.sample_packed(model, batch_generator(4, k, cuda)))
+
+    before = both(0)
+    assert before[0].tobytes() == before[1].tobytes()
+    # in place, as Adam updates: a plain-path site's bias, then the
+    # kernel's message MLPs; the graphs stay and read the new weights
+    with torch.no_grad():
+        model.APDReadout.fTermNet2.linears[-1].bias.sub_(3.0)
+    g, e = both(0)
+    assert g.tobytes() == e.tobytes() != before[0].tobytes()
+    with torch.no_grad():
+        for p in model.msg_nns.parameters():
+            p.mul_(1.25)
+    moved = both(0)
+    assert moved[0].tobytes() == moved[1].tobytes() != g.tobytes()
+    assert (graphed._graphs.captures, graphed._graphs.refreshes) == (1, 2)
+    model.cfg = cfg.replace(fused_inference_enn=False)
+    fused_enn.reset_launch_counts()
+    g, e = both(1)
+    assert g.tobytes() == e.tobytes()
+    assert sum(fused_enn.LAUNCHES.values()) == 0
+    assert graphed._graphs.captures == 2
+
+
+@pytest.mark.gpu
+def test_graphed_sampler_calls_forward_hooks_as_the_eager_loop(cuda):
+    from graphinvent_tpu_torch.sampling import GraphSampler
+    from graphinvent_tpu_torch.sampling.generator import batch_generator
+    cfg, model = _sampled_model(cuda, "GGNN")
+    seen = {}
+    for eager in (False, True):
+        calls = seen[eager] = []
+        sampler = GraphSampler(cfg, cfg.batch_size, device=cuda,
+                               _eager=eager)
+        sampler.sample_packed(model, batch_generator(5, 1, cuda))
+
+        def keep(module, args, output):
+            calls.append((args[0].clone(), args[1].clone(), output.clone()))
+
+        def shift(module, args, output):
+            return output + 0.5 * (output > 0)
+
+        handles = [model.register_forward_hook(keep),
+                   model.register_forward_hook(shift)]
+        packed = sampler.sample_packed(model, batch_generator(5, 0, cuda))
+        for h in handles:
+            h.remove()
+        calls.append(packed)
+        if not eager:
+            graphed_captures = sampler._graphs.captures
+    assert len(seen[False]) == len(seen[True]) >= 4
+    assert graphed_captures == 1         # hooks need no capture of their own
+    for got, want in zip(seen[False][:-1], seen[True][:-1]):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert seen[False][-1].tobytes() == seen[True][-1].tobytes()
+
+    # a forward pre-hook keeps the eager loop: nothing is captured
+    sampler = GraphSampler(cfg, cfg.batch_size, device=cuda)
+    handle = model.register_forward_pre_hook(lambda module, args: None)
+    sampler.sample_packed(model, batch_generator(5, 0, cuda))
+    handle.remove()
+    assert sampler._graphs.captures == 0

@@ -102,11 +102,16 @@ def test_flat_weights_cached_per_model_and_rebuilt_on_change():
         first = towers.__dict__["_fused_flat"][1]
         fused_enn.fused_stacked_mlp(towers, x)
         assert towers.__dict__["_fused_flat"][1] is first
+    key = towers.__dict__["_fused_flat"][0]
+    w = first.w.clone()
     with torch.no_grad():
         towers[1].linears[0].weight.add_(1.0)
     with torch.inference_mode():
         out = fused_enn.fused_stacked_mlp(towers, x)
-    assert towers.__dict__["_fused_flat"][1] is not first
+    # rebuilt into the same tensors (a captured CUDA graph reads them)
+    assert towers.__dict__["_fused_flat"][0] != key
+    assert towers.__dict__["_fused_flat"][1] is first
+    assert not torch.equal(first.w, w)
     torch.testing.assert_close(out, stacked_mlp(list(towers), x).detach(),
                                rtol=1e-5, atol=1e-5)
 
