@@ -48,6 +48,16 @@ Phases (any failure raises and the script exits non-zero):
   8c. timings: a train step (CUDA events and wall; forward, backward,
      optimizer), the device's busy share over 5 profiled steps, a
      validation batch on the kernel path, peak device memory;
+  8d. the resident epoch's steps replayed from a captured CUDA graph
+     (``train/step_graphs.py``) against the eager loop on phase 8's
+     checkpoint and phase 7's rows, B=1000: two epochs of 8 steps each
+     way with per-step losses, weights, Adam's moments and step, and the
+     dropout generator's state byte-equal, one capture, 0 launches, then
+     the validation loss on the kernel path equal both ways (the version
+     counters moved); a step's time both ways (host clock over a whole
+     epoch to its one read), with ``max_memory_allocated`` and the
+     reserved memory over it, and the device's busy share over 5 profiled
+     steps;
   9. the test job through ``main`` on phase 8's checkpoint: "Test" scores
      in validation.log, its NLL batches through the kernel;
   10. the other five models (MNN, S2V, AttS2V, AttGGNN, EMN) at their
@@ -71,8 +81,8 @@ Phases (any failure raises and the script exits non-zero):
      a seeded sampler batch run twice (byte-equal), and graphed against
      eager as in 5b (bytes, generator state, launches); a selection on the
      packed edge list as a gather against the one-hot product; time per
-     sampler round and per train step, the device's busy share over 3
-     profiled steps, peak device memory;
+     sampler round; each model's train epochs graphed against eager as in
+     8d (byte-equal; a step's time, busy share and memory both ways);
   13. the fine-tune job and the two-phase sampler, bf16, B=1000, on
      pretrained models whose rollouts build molecules: phase 8's GGNN and
      phase 11's AttGGNN and EMN checkpoints with their APD heads' "add to
@@ -217,6 +227,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import itertools
 import json
 import math
 import os
@@ -1321,6 +1332,137 @@ def phase_train_timings(fused_enn, cfg, job: str, data: dict) -> None:
         f"{t2 - t1:.3f} s, 2 NLL batches {t3 - t2:.3f} s")
 
 
+def profiled_busy(fn) -> tuple:
+    """(wall s, device busy s or None) of ``fn()`` under torch.profiler."""
+    from torch.autograd import DeviceType
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = (sum(e.self_device_time_total for e in kernels) / 1e6
+            if kernels else None)
+    return wall, busy
+
+
+def train_graphs_vs_eager(fused_enn, name: str, run_cfg, make_model,
+                          dtrain, dvalid) -> dict:
+    """``make_model()``'s resident epochs on ``dtrain`` graphed
+    (``train/step_graphs.py``) and eager: two epochs of 8 steps each way
+    held byte for byte (per-step losses, means, weights, moments, Adam's
+    step, the dropout generator's state), 0 launches, then the validation
+    loss on the kernel path; a whole epoch timed on the host clock (it
+    ends in its one read), with the memory over it; 5 steps under the
+    profiler.  -> the readings."""
+    import gc
+    from graphinvent_tpu_torch.sampling.generator import (
+        STREAM_DROPOUT, seeded_generator,
+    )
+    from graphinvent_tpu_torch.train import device_data
+    from graphinvent_tpu_torch.train.optim import Adam, onecycle_for_config
+    dev = dtrain.device
+    steps = n_batches(dtrain.n_rows)
+    vperm = device_data.epoch_permutation(dvalid.n_rows, B,
+                                          np.random.default_rng(0))
+    out, state = {}, {}
+    for way in ("graphed", "eager"):
+        model = make_model()
+        adam = Adam(model)
+        schedule = onecycle_for_config(run_cfg.replace(epochs=2), steps)
+        fn = device_data.make_epoch_train_fn(run_cfg, schedule, dtrain,
+                                             model, adam,
+                                             _eager=way == "eager")
+        valid = device_data.make_epoch_eval_fn(run_cfg, dvalid, model)
+        valid(vperm)                          # fills the weight caches
+        rng = np.random.default_rng(3)
+
+        def epoch(e, n, losses=None):
+            perm = device_data.epoch_permutation(dtrain.n_rows, B, rng)[:n]
+            gen = seeded_generator([run_cfg.seed, e], dev, STREAM_DROPOUT)
+            return fn(perm, gen, losses), gen
+
+        fused_enn.reset_launch_counts()
+        runs = []
+        for e in range(2):
+            losses = []
+            mean, gen = epoch(e, 8, losses)
+            runs.append((mean, torch.stack(losses).cpu(), gen.get_state()))
+        launches = sum(fused_enn.LAUNCHES.values())
+        valid_loss = valid(vperm)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+        t0 = time.perf_counter()
+        epoch(2, steps)
+        wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated(),
+                torch.cuda.max_memory_reserved())
+        prof_wall, busy = profiled_busy(lambda: epoch(3, 5))
+        state[way] = (adam.step, runs, [t.clone() for t in itertools.chain(
+            model.parameters(), adam.mu, adam.nu)])
+        out[way] = dict(
+            launches=launches, valid=valid_loss, ms=1e3 * wall / steps,
+            base=base, peak=peak,
+            busy=None if busy is None else busy / prof_wall,
+            graphs=None if fn.graphs is None else (fn.graphs.captures,
+                                                   fn.graphs.replays))
+        del model, adam, fn, valid
+    (gs, gr, gw), (es, er, ew) = state["graphed"], state["eager"]
+    check(gs == es == 8 + 8 + steps + 5,
+          f"{name}: Adam's step {gs} / {es}")
+    for (gm, gl, gg), (em, el, eg) in zip(gr, er):
+        check(gm == em and torch.equal(gl, el) and torch.equal(gg, eg),
+              f"{name}: a graphed epoch's losses or generator state differ "
+              f"from the eager one's ({gm} / {em})")
+    check(all(torch.equal(a, b) for a, b in zip(gw, ew)),
+          f"{name}: the weights or moments of the graphed epochs differ")
+    del state, gw, ew
+    g, e = out["graphed"], out["eager"]
+    check(g["launches"] == e["launches"] == 0,
+          f"{name}: train epochs launched the kernel: {g['launches']} / "
+          f"{e['launches']}")
+    check(g["valid"] == e["valid"],
+          f"{name}: validation loss after the graphed epochs "
+          f"{g['valid']} != {e['valid']} after the eager ones")
+    replays = 8 + 8 + steps + 5 - 1
+    check(g["graphs"] == (1, replays) and e["graphs"] is None,
+          f"{name}: {g['graphs']} captures and replays")
+    mib = 2.0 ** 20
+
+    def busy(x):
+        return "not measured" if x["busy"] is None else f"{x['busy']:.3f}"
+    log(f"    {name}: 2 epochs of 8 steps graphed against eager: per-step "
+        "losses, means, weights, moments, Adam's step and the generator's "
+        f"state byte-equal, 0 launches; then the validation loss on the "
+        f"kernel path {g['valid']:.6f} both ways; 1 capture, {replays} "
+        f"replays; a step over an epoch of {steps} (host clock) graphed "
+        f"{g['ms']:.3f} ms / eager {e['ms']:.3f} ms "
+        f"({e['ms'] / g['ms']:.2f}x); device busy over 5 profiled steps "
+        f"{busy(g)} / {busy(e)}; max_memory_allocated over the epoch "
+        f"{g['peak'][0] / mib:.1f} / {e['peak'][0] / mib:.1f} MiB "
+        f"(allocated before it {g['base'][0] / mib:.1f} / "
+        f"{e['base'][0] / mib:.1f}), max reserved "
+        f"{g['peak'][1] / mib:.1f} / {e['peak'][1] / mib:.1f} MiB")
+    gc.collect()
+    torch.cuda.empty_cache()     # the graph's pool and the eager blocks
+    return out
+
+
+def phase_train_graphs(fused_enn, cfg, job: str, data: dict) -> None:
+    log("[8d the resident epoch's steps replayed from a captured CUDA graph "
+        "against the eager loop, bf16, B=1000]")
+    dtrain, dvalid = resident(data, "train"), resident(data, "valid")
+    run_cfg = load_trained(cfg, job, "bfloat16")[0]
+    train_graphs_vs_eager(fused_enn, "GGNN", run_cfg,
+                          lambda: load_trained(cfg, job, "bfloat16")[1],
+                          dtrain, dvalid)
+
+
 def phase_test(fused_enn, cfg, job: str, data: dict) -> dict:
     log("[9 test job on the checkpoint of phase 8]")
     test_cfg = cfg.replace(
@@ -1691,21 +1833,17 @@ def phase_model_numerics(fused_enn, models, jobs: dict, data: dict) -> None:
 
 
 def phase_model_timings(fused_enn, models, jobs: dict, data: dict) -> None:
-    from torch.autograd import DeviceType
     from graphinvent_tpu_torch.sampling import GraphSampler
     from graphinvent_tpu_torch.sampling.generator import batch_generator
-    from graphinvent_tpu_torch.train import device_data, step
-    from graphinvent_tpu_torch.train.optim import Adam, onecycle_for_config
-    log("[12b timings of the five models, bf16, B=1000]")
+    log("[12b timings of the five models, bf16, B=1000; their train epochs "
+        "graphed against eager as in 8d]")
     dev = torch.device("cuda")
-    dtrain = resident(data, "train")
-    perm = torch.from_numpy(device_data.epoch_permutation(
-        dtrain.n_rows, B, np.random.default_rng(1)).astype(np.int64)).to(dev)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    dtrain, dvalid = resident(data, "train"), resident(data, "valid")
     for name in OTHER_MODELS:
-        run_cfg, model = load_trained(models[name][0], jobs[name],
-                                      "bfloat16", epoch=1)
+        def trained():
+            return load_trained(models[name][0], jobs[name], "bfloat16",
+                                epoch=1)
+        run_cfg, model = trained()
         model.eval()
         sampler = GraphSampler(run_cfg, B, device=dev)
         sampler.sample_packed(model, batch_generator(0, 99, dev))
@@ -1715,41 +1853,11 @@ def phase_model_timings(fused_enn, models, jobs: dict, data: dict) -> None:
                                  quiet=True)
             rounds += res.n_rounds
             secs += res.elapsed_s
-        adam = Adam(model)
-        schedule = onecycle_for_config(run_cfg.replace(epochs=2), len(perm))
-        train_step = step.make_train_step(run_cfg, schedule, model, adam)
-
-        def one_step(k: int) -> None:
-            train_step(device_data._gather_batch(dtrain, perm[k % len(perm)]))
-
-        for k in range(2):
-            one_step(k)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.time()
-        step_ms = cuda_ms(lambda: one_step(0), iters=10, warmup=0)
-        wall_ms = 1e3 * (time.time() - t0) / 10
-        peak = torch.cuda.max_memory_allocated() / 2**20
-        with torch.profiler.profile(activities=acts) as prof:
-            torch.cuda.synchronize()
-            t0 = time.time()
-            for k in range(3):
-                one_step(k)
-            torch.cuda.synchronize()
-            wall = time.time() - t0
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in kernels) / 1e6
-        share = (f"{100 * busy / wall:.1f}% of 3 profiled steps"
-                 if kernels else "not measured")
         log(f"    {name:<8} sampler {1e3 * secs / rounds:.3f} ms a round "
-            f"({rounds} rounds, {2 * B / secs:.0f} molecules/s); train step "
-            f"{step_ms:.3f} ms (CUDA events over 10 steps), {wall_ms:.3f} ms "
-            f"wall, {1e3 * B / wall_ms:.0f} rows/s; device busy {share}; "
-            f"peak device memory {peak:.0f} MiB")
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:3]:
-            log(f"      {e.self_device_time_total / 1e3:9.3f} ms  "
-                f"{e.count:5d}x  {e.key[:70]}")
+            f"({rounds} rounds, {2 * B / secs:.0f} molecules/s)")
+        del model, sampler
+        train_graphs_vs_eager(fused_enn, name, run_cfg,
+                              lambda: trained()[1], dtrain, dvalid)
 
 
 # --------------------------------------------------------------------------
@@ -2508,22 +2616,22 @@ def v1_pickle(sd: dict, path: str, module_name: str = "reference_gnn_v1"
 
 def restarted_train_job(fused_enn, cfg, data: dict, job: str, files: list):
     """A train job restarted for one epoch (with its evaluation) in a fresh
-    dir holding ``files``; -> (workflow, per-step losses, launches)."""
-    from graphinvent_tpu_torch.train import device_data
+    dir holding ``files``; -> (workflow, per-step losses, launches).  The
+    losses come from the resident epoch's ``step_losses`` (its steps are
+    replays of a captured graph, which call no Python step)."""
+    import graphinvent_tpu_torch.workflow as port_workflow
     os.makedirs(job)
     for f in files:
         shutil.copy(f, job)
     losses = []
-    inner = device_data.make_train_step
+    inner = port_workflow.make_epoch_train_fn
 
     def recording(*args, **kw):
-        train_step = inner(*args, **kw)
+        run = inner(*args, **kw)
 
-        def step(*a, **k):
-            loss = train_step(*a, **k)
-            losses.append(loss.detach().clone())
-            return loss
-        return step
+        def epoch(perm, generator=None, step_losses=None):
+            return run(perm, generator, losses)
+        return epoch
 
     run_cfg = cfg.replace(
         job_type="train", dataset_dir=data["dir"] + "/", batch_size=1000,
@@ -2531,11 +2639,11 @@ def restarted_train_job(fused_enn, cfg, data: dict, job: str, files: list):
         sample_every=1, n_samples=1000, tensorboard_dir="", device="cuda",
         compute_dtype="bfloat16")
     fused_enn.reset_launch_counts()
-    device_data.make_train_step = recording
+    port_workflow.make_epoch_train_fn = recording
     try:
         workflow, _ = run_job(run_cfg, job)
     finally:
-        device_data.make_train_step = inner
+        port_workflow.make_epoch_train_fn = inner
     rounds = sum(r for r, _ in workflow.batch_stats)
     launches = check_launches(fused_enn, run_cfg, f"restart in {job}",
                               n_batches(data["rows"]["valid"]) + 2 + rounds)
@@ -4525,6 +4633,7 @@ def main() -> None:
         by_job["train"], job = phase_train(fused_enn, cfg, root, data)
         phase_train_numerics(fused_enn, cfg, job, data)
         phase_train_timings(fused_enn, cfg, job, data)
+        phase_train_graphs(fused_enn, cfg, job, data)
         by_job["test"] = phase_test(fused_enn, cfg, job, data)
         model_errs = phase_model_kernels(fused_enn, models)
         phase_model_forwards(fused_enn, models)

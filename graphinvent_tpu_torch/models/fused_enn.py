@@ -23,6 +23,7 @@ launches the kernel or raises; a CPU tensor takes
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -30,7 +31,9 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import (
+    Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple,
+)
 
 import torch
 
@@ -99,6 +102,21 @@ def credit_launches(delta: Counts) -> None:
                             delta):
         for k, v in gained.items():
             live[k] = live.get(k, 0) + v
+
+
+@contextlib.contextmanager
+def uncounted() -> Iterator[None]:
+    """Launches inside add nothing to the counters: those of a graph's
+    warm-up or refresh are no replay's, and a capture launches nothing
+    (``credit_launches`` counts each replay)."""
+    before = launch_counts()
+    try:
+        yield
+    finally:
+        for live, saved in zip((LAUNCHES, LAUNCHES_BY_LAYOUT,
+                                LAUNCHES_BY_SHAPE), before):
+            live.clear()
+            live.update(saved)
 
 
 def _nvcc() -> str:

@@ -15,7 +15,9 @@ packed are the eager loop's.
   of a round reads, since a replay re-runs none of it: the model (by
   identity), its ``cfg`` (``fused_inference_enn``, the dtype), every
   parameter's and buffer's ``data_ptr``, shape and dtype, the sampler's
-  cfg and batch, and the training, grad and inference modes.  An eager
+  cfg and batch, the training, grad and inference modes, and the drops
+  of the library's workspaces so far (``utils/cuda_graphs.py``: a drop
+  frees the workspace a captured round reads).  An eager
   warm-up round on the capture stream (a side stream) first builds the
   kernel and fills ``fused_enn._cached_flat``, so the graphs hold no
   flatten; the entry keeps the flattened weights and the parameters they
@@ -47,7 +49,6 @@ Nothing falls back: a capture or a replay that fails raises.
 
 from __future__ import annotations
 
-import contextlib
 import itertools
 import weakref
 from typing import Any, Callable, List, NamedTuple, Tuple
@@ -56,6 +57,7 @@ import torch
 from torch.nn.modules import module as nn_module
 
 from graphinvent_tpu_torch.models import fused_enn
+from graphinvent_tpu_torch.utils import cuda_graphs
 
 # captured rounds kept by one sampler (the fine-tune job samples its agent
 # and its BASF on one)
@@ -71,6 +73,7 @@ class RoundKey(NamedTuple):
     batch_size: int
     device: torch.device
     modes: Tuple[bool, bool, bool]   # training, grad, inference mode
+    workspaces: int = 0     # ``cuda_graphs.workspace_drops()`` before it
 
 
 def round_key(sampler_cfg: Any, model: torch.nn.Module, batch_size: int,
@@ -82,7 +85,7 @@ def round_key(sampler_cfg: Any, model: torch.nn.Module, batch_size: int,
         tuple(-1 if t.is_inference() else t._version for t in tensors),
         getattr(model, "cfg", None), sampler_cfg, batch_size, device,
         (model.training, torch.is_grad_enabled(),
-         torch.is_inference_mode_enabled()))
+         torch.is_inference_mode_enabled()), cuda_graphs.workspace_drops())
 
 
 def keeps_eager_loop(model: Any) -> bool:
@@ -161,8 +164,8 @@ class RoundGraphs:
                     self.entries.append(e)
                     return e
                 continue     # its flattened weights are other tensors now
-            if m is not None and not (m is model
-                                      and e.key.weights != key.weights):
+            if m is not None and e.key.workspaces == key.workspaces and not (
+                    m is model and e.key.weights != key.weights):
                 live.append(e)
         entry = self._capture(cfg, model, device, batch_size, initial, step,
                               key)
@@ -173,7 +176,7 @@ class RoundGraphs:
         """After an edit in place: one eager forward, whose
         ``_cached_flat`` writes the new flattened weights into the tensors
         the graphs read.  False where they are other tensors now."""
-        with _uncounted():
+        with fused_enn.uncounted():
             model.forward(entry.state.nodes, entry.state.edges)
         flats = fused_enn.cached_flats(model)
         if len(flats) != len(entry.keep[0]) or any(
@@ -203,59 +206,22 @@ class RoundGraphs:
         graphs = (torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph())
         graphs[1].register_generator_state(gen)
         # the warm-up round and the captures run on PyTorch's one capture
-        # stream (``torch.cuda.graph``'s), so that the library's per-stream
-        # workspace (cuBLAS: 32 MiB) they allocate serves every capture of
-        # the process
-        stream = torch.cuda.graph(graphs[0]).capture_stream
-        current = torch.cuda.current_stream(device)
-        stream.wait_stream(current)
-        with torch.cuda.stream(stream), _uncounted():
+        # stream, so that the library's per-stream workspace (cuBLAS: 32
+        # MiB) they allocate serves every capture of the process
+        with cuda_graphs.on_capture_stream(graphs[0], device), \
+                fused_enn.uncounted():
             rest(forward()[1])                   # the warm-up round
             before = fused_enn.launch_counts()
-            logits = _captured(graphs[0], (), forward)
+            logits = cuda_graphs.captured(graphs[0], (), forward)
             launches = fused_enn.launch_counts(since=before)
-            all_done = _captured(graphs[1], (graphs[0].pool(),),
-                                 lambda: rest(logits[1]))
-        current.wait_stream(stream)
+            all_done = cuda_graphs.captured(graphs[1], (graphs[0].pool(),),
+                                            lambda: rest(logits[1]))
         self.captures += 1
         keep = (fused_enn.cached_flats(model),
                 [t.detach() for t in itertools.chain(model.parameters(),
                                                      model.buffers())])
         return _Captured(model, key, st, graphs, logits, all_done, gen,
                          launches, keep)
-
-
-@contextlib.contextmanager
-def _uncounted():
-    """Launches inside add nothing to ``fused_enn``'s counters: those of a
-    warm-up or a refresh are no round's, and a capture launches nothing."""
-    before = fused_enn.launch_counts()
-    try:
-        yield
-    finally:
-        for live, saved in zip((fused_enn.LAUNCHES,
-                                fused_enn.LAUNCHES_BY_LAYOUT,
-                                fused_enn.LAUNCHES_BY_SHAPE), before):
-            live.clear()
-            live.update(saved)
-
-
-def _captured(graph: torch.cuda.CUDAGraph, pool: Tuple, fn: Callable):
-    """``fn()`` captured into ``graph`` on the current stream, sharing the
-    memory pool in ``pool`` (empty: a pool of its own).  What
-    ``torch.cuda.graph`` does, without the device-wide synchronize and
-    ``empty_cache`` it runs first: ``empty_cache`` would hand back the
-    blocks a fine-tune step's gradient replay reuses (0.27 s a capture on
-    the H100, PERF.md)."""
-    graph.capture_begin(*pool, capture_error_mode="thread_local")
-    try:
-        out = fn()
-    except BaseException:
-        with contextlib.suppress(RuntimeError):   # keep fn's error
-            graph.capture_end()
-        raise
-    graph.capture_end()
-    return out
 
 
 def _call_hooks(model: torch.nn.Module, st, logits: torch.Tensor,

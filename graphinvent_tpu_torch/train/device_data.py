@@ -6,9 +6,12 @@ moves every batch host-to-device inside the epoch loop
 + edges + APDs) is copied to the device once, and a batch is a row gather
 there with the int8 -> compute-dtype cast inside the step.  Where the JAX
 package runs an epoch as one ``lax.scan`` in one compiled program, the port
-runs an eager loop: the shuffled row ids are uploaded once per epoch, every
-step's loss stays on the device, and the ONLY host synchronisation of an
-epoch is one ``.item()`` of the summed loss at its end.
+uploads the shuffled row ids once per epoch and, on a CUDA device with one
+process and no mesh, replays each step (gather, cast, forward, backward,
+OneCycle's staged scalars, Adam) from one captured CUDA graph
+(``train/step_graphs.py``); elsewhere it runs the same step eagerly.
+Every step's loss stays on the device, and the ONLY host synchronisation
+of an epoch is one ``.item()`` of the summed loss at its end.
 
 A dataset that exceeds ``cfg.device_data_gb`` takes the streamed
 ``BlockLoader`` path instead (workflow.py).
@@ -33,6 +36,7 @@ from graphinvent_tpu_torch.train.optim import Adam, OneCycle
 from graphinvent_tpu_torch.train.step import (
     make_eval_step, make_likelihood_step, make_train_step,
 )
+from graphinvent_tpu_torch.train.step_graphs import StepGraphs, replays_steps
 
 
 def _mesh_steps(cfg: GraphInventConfig, mesh) -> Tuple[slice, bool]:
@@ -120,13 +124,15 @@ def _upload_perm(perm: np.ndarray, device: torch.device) -> torch.Tensor:
 
 def make_epoch_train_fn(cfg: GraphInventConfig, schedule: OneCycle,
                         data: DeviceDataset, model: nn.Module, adam: Adam,
-                        mesh=None
+                        mesh=None, *, _eager: bool = False
                         ) -> Callable[..., float]:
     """Returns ``(perm, generator, step_losses=None) -> mean loss``: a full
     epoch over the index batches of ``perm``, updating ``model`` and
     ``adam`` in place; on ``mesh``, this rank's rows of each batch.  A
-    ``step_losses`` list receives each step's loss as the step returned it
-    (a tensor on the device: nothing is read back)."""
+    ``step_losses`` list receives each step's loss (a tensor on the
+    device: nothing is read back).  Where ``step_graphs.replays_steps``
+    holds (and not ``_eager``), the steps are replays of a captured graph
+    (``run.graphs``, a ``StepGraphs``; None on the eager loop)."""
     rows, sharded = _mesh_steps(cfg, mesh)
     if sharded:
         from graphinvent_tpu_torch.parallel.mesh import (
@@ -136,18 +142,27 @@ def make_epoch_train_fn(cfg: GraphInventConfig, schedule: OneCycle,
                                              mesh)
     else:
         train_step = make_train_step(cfg, schedule, model, adam)
+    graphs = None
+    if not _eager and replays_steps(data.device, mesh):
+        graphs = StepGraphs(cfg, schedule, model, adam, data,
+                            lambda idx: _gather_batch(data, idx), train_step)
 
     def run(perm: np.ndarray, generator: Optional[torch.Generator] = None,
             step_losses: Optional[List[torch.Tensor]] = None) -> float:
         batches = _upload_perm(perm[:, rows], data.device)
         total = torch.zeros((), dtype=torch.float32, device=data.device)
-        for idx in batches:
-            loss = train_step(_gather_batch(data, idx), generator)
+        if graphs is None:
+            losses = (train_step(_gather_batch(data, idx), generator)
+                      for idx in batches)
+        else:
+            losses = graphs.steps(batches, generator)
+        for loss in losses:
             if step_losses is not None:
                 step_losses.append(loss)
             total += loss
         return total.item() / len(batches)
 
+    run.graphs = graphs
     return run
 
 

@@ -14,13 +14,21 @@ fine-tune jobs use pct_start=0.05, div=1/max_rel_lr, final_div=1/min_rel_lr
 not used: it raises past ``total_steps``, where this schedule clips and
 stays at its final value (a restarted job may run past its plan).
 
-The step count is known on the host, so ``lr`` and ``beta1`` are Python
-floats computed there: no device value is read.  Adam is written out so
-that the *current* beta1 enters both the first-moment update and its bias
+The step count is known on the host, so ``lr`` and ``beta1`` are computed
+there in float64: no device value is read.  Adam is written out so that
+the *current* beta1 enters both the first-moment update and its bias
 correction (torch's semantics under a cycled momentum), as one
-multi-tensor update over all leaves (``torch._foreach_*``), in place: the
-parameters' version counters move, which the fused kernel's weight cache
-keys on.  The moments are checkpointed beside the model.
+multi-tensor update over all leaves (``torch._foreach_*``), in place, in
+two parts: the host stages a step's scalars (:func:`adam_scalars`: beta1,
+1 - beta1, the two bias corrections, lr) in a small device tensor, and
+:meth:`Adam.apply` reads them there.  An eager step
+stages each step's (:meth:`Adam.update`, a copy that does not wait for the
+device); a captured step (``train/step_graphs.py``) replays the same
+arithmetic on a row of the epoch's table (:meth:`Adam.scalar_table`),
+which a Python scalar baked into a graph could not follow.  An eager
+update moves the parameters' version counters, which the fused kernel's
+weight cache keys on; after replayed updates ``step_graphs`` moves them.
+The moments are checkpointed beside the model.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import math
 from dataclasses import dataclass
 from typing import Dict, List, Mapping, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -92,10 +101,29 @@ def onecycle_for_config(cfg: GraphInventConfig, steps_per_epoch: int
     return OneCycle(max_lr=max_lr, total_steps=steps_per_epoch * total_epochs)
 
 
+# the staged scalars of one update, in this order (float32)
+SCALARS = ("beta1", "one_minus_beta1", "bias_correction1",
+           "bias_correction2", "lr")
+
+
+def adam_scalars(t: int, lr: float, beta1: float, beta2: float
+                 ) -> np.ndarray:
+    """(len(SCALARS),) float32: what update number ``t`` (1-based) reads,
+    computed in float64 and rounded once."""
+    return np.array([beta1, 1.0 - beta1, 1.0 - beta1 ** t, 1.0 - beta2 ** t,
+                     lr], np.float64).astype(np.float32)
+
+
 class Adam:
     """torch-style Adam over a model's parameters with a scheduled lr and
     beta1.  ``step`` counts the updates made; ``mu`` and ``nu`` are the
-    moments, one tensor per parameter in ``named_parameters`` order."""
+    moments, one tensor per parameter in ``named_parameters`` order.
+
+    :meth:`update` is the eager step's entry point.  A step replayed from
+    a captured graph (``train/step_graphs.py``) runs :meth:`apply` as
+    captured and advances ``step`` on the host, so a subclass's
+    :meth:`update` runs on eager steps only (the step with a hook that
+    keeps it eager, the step before a capture)."""
 
     def __init__(self, model: nn.Module, beta2: float = 0.999,
                  eps: float = 1e-8) -> None:
@@ -112,25 +140,66 @@ class Adam:
         for p in self.params:
             p.grad = None
 
-    @torch.no_grad()
-    def update(self, lr: float, beta1: float = 0.9) -> None:
-        """One step from the parameters' ``.grad``, in place."""
+    def grads(self) -> List[torch.Tensor]:
+        """The parameters' ``.grad``; raises where one is missing."""
         grads = [p.grad for p in self.params]
         missing = [n for n, g in zip(self.names, grads) if g is None]
         if missing:
             raise RuntimeError(f"no gradient for {missing}")
+        return grads
+
+    def scalar_table(self, schedule: OneCycle, n: int) -> np.ndarray:
+        """(n, len(SCALARS)) float32: the scalars of the next ``n`` updates,
+        from the schedule at steps ``step`` .. ``step + n - 1``."""
+        return np.array([adam_scalars(self.step + i + 1,
+                                      *schedule(self.step + i), self.beta2)
+                         for i in range(n)], np.float32).reshape(
+                             n, len(SCALARS))
+
+    def stage(self, lr: float, beta1: float) -> torch.Tensor:
+        """Advances ``step`` and returns its scalars on the parameters'
+        device, without waiting for the device: on a card they go through
+        a pinned buffer of the caching host allocator, which hands it out
+        again only after this copy has read it."""
         self.step += 1
-        bc1 = 1.0 - beta1 ** self.step
-        bc2 = 1.0 - self.beta2 ** self.step
-        torch._foreach_mul_(self.mu, beta1)
-        torch._foreach_add_(self.mu, grads, alpha=1.0 - beta1)
+        host = torch.from_numpy(adam_scalars(self.step, lr, beta1,
+                                             self.beta2))
+        device = self.params[0].device
+        if device.type == "cuda":
+            host = host.pin_memory()
+        return host.to(device, non_blocking=True)
+
+    @torch.no_grad()
+    def apply(self, grads: List[torch.Tensor], scalars: torch.Tensor
+              ) -> None:
+        """One update from ``grads`` with the scalars staged in
+        ``scalars`` (a device tensor, :data:`SCALARS`), in place; reads no
+        host value but the constants ``beta2`` and ``eps``.  Eleven
+        multi-tensor ops, rounding as the JAX package's ``adam_update``
+        evaluates p - lr * (mu / bc1) / (sqrt(nu / bc2) + eps), one
+        operation at a time in that order.  (Fewer ops on folded scalars,
+        -bc1 / (lr sqrt(bc2)) and -eps bc1 / lr, are as close to JAX, but
+        their other rounding made the generate cell's 30-epoch checkpoint
+        diverge at epoch 8: PERF.md.)"""
+        b1, one_minus_b1, bc1, bc2, lr = scalars.unbind()
+        torch._foreach_mul_(self.mu, b1)
+        scaled = torch._foreach_mul(grads, one_minus_b1)
+        torch._foreach_add_(self.mu, scaled)
+        del scaled
         torch._foreach_mul_(self.nu, self.beta2)
         torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - self.beta2)
-        # p -= lr * (mu / bc1) / (sqrt(nu / bc2) + eps)
-        denom = torch._foreach_sqrt(self.nu)
-        torch._foreach_div_(denom, math.sqrt(bc2))
+        denom = torch._foreach_div(self.nu, bc2)
+        torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
-        torch._foreach_addcdiv_(self.params, self.mu, denom, value=-lr / bc1)
+        step = torch._foreach_div(self.mu, bc1)
+        torch._foreach_mul_(step, lr)
+        # p + (-1) * (step / denom): p - step / denom, rounded once
+        torch._foreach_addcdiv_(self.params, step, denom, value=-1.0)
+
+    def update(self, lr: float, beta1: float = 0.9) -> None:
+        """One step from the parameters' ``.grad``, in place."""
+        grads = self.grads()
+        self.apply(grads, self.stage(lr, beta1))
 
     # ------------------------------------------------------------------
     def state_dict(self) -> Dict[str, object]:

@@ -131,20 +131,24 @@ def train_loss(cfg: GraphInventConfig, model: nn.Module, batch: Batch,
 
 def make_train_step(cfg: GraphInventConfig, schedule: OneCycle,
                     model: nn.Module, adam: Adam
-                    ) -> Callable[[Batch, Optional[torch.Generator]],
-                                  torch.Tensor]:
-    """Returns ``(batch, generator) -> loss``: gradient, OneCycle and Adam,
-    updating ``model`` and ``adam`` in place.  lr and beta1 come from the
-    host's step count; the loss stays on the device."""
+                    ) -> Callable[..., torch.Tensor]:
+    """Returns ``(batch, generator=None, scalars=None) -> loss``: gradient,
+    OneCycle and Adam, updating ``model`` and ``adam`` in place; the loss
+    stays on the device.  Without ``scalars``, ``adam.update`` takes lr and
+    beta1 from the host's step count.  With them (Adam's staged scalars on
+    the device, ``adam.step`` advanced by the caller), ``adam.apply`` reads
+    them: the body that ``train/step_graphs.py`` captures and replays."""
 
     def train_step(batch: Batch,
-                   generator: Optional[torch.Generator] = None
-                   ) -> torch.Tensor:
+                   generator: Optional[torch.Generator] = None,
+                   scalars: Optional[torch.Tensor] = None) -> torch.Tensor:
         adam.zero_grad()
         loss = train_loss(cfg, model, batch, generator)
         loss.backward()
-        lr, beta1 = schedule(adam.step)
-        adam.update(lr, beta1)
+        if scalars is None:
+            adam.update(*schedule(adam.step))
+        else:
+            adam.apply(adam.grads(), scalars)
         return loss.detach()
 
     return train_step

@@ -422,3 +422,247 @@ def test_graphed_sampler_calls_forward_hooks_as_the_eager_loop(cuda):
     sampler.sample_packed(model, batch_generator(5, 0, cuda))
     handle.remove()
     assert sampler._graphs.captures == 0
+
+
+# --------------------------------------------------------------------------
+# the resident train epoch's steps as replays of a captured CUDA graph
+# (train/step_graphs.py) against the eager loop: byte-equal losses,
+# weights, moments, Adam's step and the dropout generator's state
+# --------------------------------------------------------------------------
+
+def _train_data(cuda, name, rows=200, batch=64):
+    """``preset(name)`` (bf16, N=13) with every dropout at 0.1, so that
+    the graph draws masks, and ``rows`` seeded rows resident on the card
+    (the last batch padded)."""
+    from dataclasses import fields
+    from types import SimpleNamespace
+    from graphinvent_tpu_torch.config import preset
+    from graphinvent_tpu_torch.utils.synthetic import synthetic_graphs
+    cfg = preset(name, device="cuda", compute_dtype="bfloat16",
+                 batch_size=batch)
+    cfg = cfg.replace(**{f.name: 0.1 for f in fields(cfg)
+                         if f.name.endswith("_dropout_p")})
+    nodes, edges = synthetic_graphs(cfg, rows, seed=2)
+    rng = np.random.default_rng(2)
+    apds = np.zeros((rows, cfg.dim_apd), np.int8)
+    apds[np.arange(rows), rng.integers(0, cfg.dim_apd, rows)] = 1
+    apds[::4, 5] += 1
+
+    def put(a):
+        return torch.from_numpy(a.astype(np.int8)).to(cuda)
+    return cfg, SimpleNamespace(nodes=put(nodes), edges=put(edges),
+                                apds=put(apds), device=cuda, n_rows=rows)
+
+
+def _trainer(cfg, data, eager, adam_cls=None):
+    """(model, adam, epoch fn): seeded weights, OneCycle over 3 epochs."""
+    import math
+    from graphinvent_tpu_torch.models import build_model
+    from graphinvent_tpu_torch.train.device_data import make_epoch_train_fn
+    from graphinvent_tpu_torch.train.optim import Adam, onecycle_for_config
+    model = build_model(cfg, torch.Generator().manual_seed(0)).to(
+        data.device)
+    adam = (adam_cls or Adam)(model)
+    schedule = onecycle_for_config(cfg.replace(epochs=3), math.ceil(
+        data.n_rows / cfg.batch_size))
+    return model, adam, make_epoch_train_fn(cfg, schedule, data, model, adam,
+                                            _eager=eager)
+
+
+def _epoch(fn, cfg, data, e, step_losses=None):
+    """Epoch ``e`` (its own permutation and dropout generator): (mean
+    loss, per-step losses, the generator's state after)."""
+    from graphinvent_tpu_torch.sampling.generator import (
+        STREAM_DROPOUT, seeded_generator,
+    )
+    from graphinvent_tpu_torch.train.device_data import epoch_permutation
+    perm = epoch_permutation(data.n_rows, cfg.batch_size,
+                             np.random.default_rng(e))
+    gen = seeded_generator([5, e], data.device, STREAM_DROPOUT)
+    losses = [] if step_losses is None else step_losses
+    mean = fn(perm, gen, losses)
+    return mean, torch.stack(losses).cpu(), gen.get_state()
+
+
+def _assert_same_training(a, b):
+    """Two (model, adam, epochs) runs, byte for byte."""
+    (ma, aa, ea), (mb, ab, eb) = a, b
+    assert aa.step == ab.step
+    for x, y in zip(ea, eb):
+        assert x[0] == y[0]
+        assert torch.equal(x[1], y[1]) and torch.equal(x[2], y[2])
+    for ta, tb in zip(list(ma.parameters()) + aa.mu + aa.nu,
+                      list(mb.parameters()) + ab.mu + ab.nu):
+        assert torch.equal(ta, tb)
+
+
+@pytest.mark.gpu
+def test_adam_stage_does_not_wait_for_queued_work(cuda):
+    """The eager step's staged scalars are a copy queued on the stream:
+    with a long kernel queued before it, the stream is still busy when
+    ``stage`` returns, and each copy lands its own values (a pinned buffer
+    is not handed out again while a copy may still read it)."""
+    from graphinvent_tpu_torch.train.optim import Adam, adam_scalars
+    adam = Adam(torch.nn.Linear(4, 3).to(cuda))
+    stream = torch.cuda.current_stream(cuda)
+    staged = []
+    for lr in (1e-3, 2e-3, 3e-3):
+        torch.cuda._sleep(1 << 28)        # about 0.1 s of spinning
+        staged.append(adam.stage(lr, 0.9))
+        assert not stream.query()
+    torch.cuda.synchronize(cuda)
+    for t, (lr, got) in enumerate(zip((1e-3, 2e-3, 3e-3), staged), 1):
+        np.testing.assert_array_equal(
+            got.cpu().numpy(), adam_scalars(t, lr, 0.9, adam.beta2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", SAMPLED_MODELS)
+def test_graphed_epochs_match_the_eager_loop(cuda, name):
+    """Two epochs each way: the first captures after its first step, the
+    second only replays; 0 kernel launches in the train steps.  Then the
+    validation loss on the kernel path reads the new weights on both
+    (the version counters moved after the replays), byte-equal."""
+    from graphinvent_tpu_torch.train.device_data import (
+        epoch_permutation, make_epoch_eval_fn,
+    )
+    cfg, data = _train_data(cuda, name)
+    vperm = epoch_permutation(data.n_rows, cfg.batch_size,
+                              np.random.default_rng(9))
+    runs, valid = {}, {}
+    for eager in (False, True):
+        model, adam, fn = _trainer(cfg, data, eager)
+        evaluate = make_epoch_eval_fn(cfg, data, model)
+        before = evaluate(vperm)           # fills the wrappers' caches
+        fused_enn.reset_launch_counts()
+        epochs = [_epoch(fn, cfg, data, e) for e in range(2)]
+        assert sum(fused_enn.LAUNCHES.values()) == 0
+        valid[eager] = (before, evaluate(vperm),
+                        sum(fused_enn.LAUNCHES.values()))
+        runs[eager] = (model, adam, epochs)
+        if eager:
+            assert fn.graphs is None
+        else:
+            assert (fn.graphs.captures, fn.graphs.replays) == (1, 7)
+            assert all(p.grad is None for p in adam.params)
+    _assert_same_training(runs[False], runs[True])
+    assert valid[False] == valid[True]
+    assert valid[False][1] != valid[False][0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", SAMPLED_MODELS)
+def test_graphed_epoch_runs_a_hooked_step_eagerly_between_replays(cuda,
+                                                                   name):
+    """In the second epoch a one-shot forward hook is armed after step 0:
+    step 1 runs eagerly (the hook sees its logits, an Adam subclass's
+    ``update`` runs), steps 0, 2 and 3 replay; byte-equal to the eager
+    loop."""
+    from graphinvent_tpu_torch.train.optim import Adam
+
+    class CountingAdam(Adam):
+        calls = 0
+
+        def update(self, lr, beta1=0.9):
+            self.calls += 1
+            super().update(lr, beta1)
+
+    cfg, data = _train_data(cuda, name)
+    runs, seen = {}, {}
+    for eager in (False, True):
+        model, adam, fn = _trainer(cfg, data, eager, CountingAdam)
+        logits = seen[eager] = []
+
+        class Arming(list):
+            def append(self, loss):
+                super().append(loss)
+                if len(self) == 1:
+                    box = {}
+
+                    def hook(module, args, output):
+                        logits.append(output.detach().float().cpu())
+                        box["handle"].remove()
+                    box["handle"] = model.register_forward_hook(hook)
+
+        epochs = [_epoch(fn, cfg, data, 0), _epoch(fn, cfg, data, 1,
+                                                   Arming())]
+        runs[eager] = (model, adam, epochs)
+        if not eager:
+            assert (fn.graphs.captures, fn.graphs.replays) == (1, 6)
+    _assert_same_training(runs[False], runs[True])
+    # the warm-up step before the capture and the hooked step: eager
+    assert runs[False][1].calls == 2 and runs[True][1].calls == 8
+    assert len(seen[False]) == len(seen[True]) == 1
+    assert torch.equal(seen[False][0], seen[True][0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", SAMPLED_MODELS)
+def test_graphed_epochs_restart_from_a_checkpoint(cuda, name):
+    """A checkpoint after epoch 1: a new model and Adam loaded from it,
+    and the first ones loaded back in place (which keeps their graph),
+    run epoch 2 to the same per-step losses and weights as the
+    uninterrupted run."""
+    import copy
+    cfg, data = _train_data(cuda, name)
+    model, adam, fn = _trainer(cfg, data, False)
+    _epoch(fn, cfg, data, 0)
+    saved = (copy.deepcopy(model.state_dict()), adam.state_dict())
+    want = _epoch(fn, cfg, data, 1)
+    after = [t.clone() for t in model.parameters()]
+
+    model2, adam2, fn2 = _trainer(cfg, data, False)
+    model2.load_state_dict(saved[0])
+    adam2.load_state_dict(saved[1])
+    got = _epoch(fn2, cfg, data, 1)
+    model.load_state_dict(saved[0])
+    adam.load_state_dict(saved[1])
+    again = _epoch(fn, cfg, data, 1)
+    assert fn.graphs.captures == 1 and fn2.graphs.captures == 1
+    for run, m, a in ((got, model2, adam2), (again, model, adam)):
+        assert run[0] == want[0] and torch.equal(run[1], want[1])
+        assert torch.equal(run[2], want[2]) and a.step == 8
+        assert all(torch.equal(x, y) for x, y in zip(m.parameters(), after))
+
+
+@pytest.mark.gpu
+def test_graphed_epoch_recaptures_on_a_replaced_tensor_or_cfg(cuda):
+    cfg, data = _train_data(cuda, "GGNN")
+    model, adam, fn = _trainer(cfg, data, False)
+    _epoch(fn, cfg, data, 0)
+    lin = model.APDReadout.fTermNet2.linears[-1]
+    i = next(k for k, p in enumerate(adam.params) if p is lin.bias)
+    lin.bias = adam.params[i] = torch.nn.Parameter(lin.bias.detach().clone())
+    _epoch(fn, cfg, data, 1)
+    assert fn.graphs.captures == 2
+    model.cfg = cfg.replace(message_passes=cfg.message_passes)  # equal cfg
+    _epoch(fn, cfg, data, 2)
+    assert fn.graphs.captures == 2
+    model.cfg = cfg.replace(fused_inference_enn=False)
+    _epoch(fn, cfg, data, 2)
+    assert fn.graphs.captures == 3
+
+
+@pytest.mark.gpu
+def test_a_train_capture_makes_an_earlier_sampler_graph_recapture(cuda):
+    """A train capture drops the library's workspaces, which a round
+    captured before it reads: the sampler captures again, and its batches
+    stay byte-equal to the eager loop's on the weights the epoch left."""
+    from graphinvent_tpu_torch.sampling import GraphSampler
+    from graphinvent_tpu_torch.sampling.generator import batch_generator
+    cfg, data = _train_data(cuda, "GGNN")
+    model, _, fn = _trainer(cfg, data, False)
+    sample_cfg = cfg.replace(batch_size=256)
+    graphed = GraphSampler(sample_cfg, 256, device=cuda)
+    eager = GraphSampler(sample_cfg, 256, device=cuda, _eager=True)
+
+    def both(k):
+        return (graphed.sample_packed(model, batch_generator(6, k, cuda)),
+                eager.sample_packed(model, batch_generator(6, k, cuda)))
+
+    g, e = both(0)
+    assert g.tobytes() == e.tobytes()
+    _epoch(fn, cfg, data, 0)
+    g2, e2 = both(0)
+    assert g2.tobytes() == e2.tobytes() != g.tobytes()
+    assert graphed._graphs.captures == 2 and fn.graphs.captures == 1

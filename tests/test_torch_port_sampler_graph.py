@@ -271,7 +271,7 @@ def test_credit_launches_adds_one_replay_to_the_live_counters():
         assert fused_enn.LAUNCHES_BY_LAYOUT == {(1, 4, 4): 4}
         assert fused_enn.LAUNCHES_BY_SHAPE == {((1, 4, 4), 8): 4}
         snap = fused_enn.launch_counts()
-        with rg._uncounted():                  # a capture adds nothing
+        with fused_enn.uncounted():            # a capture adds nothing
             fused_enn.credit_launches(delta)
             fused_enn.credit_launches(({}, {(2, 8, 8): 1}, {}))
         assert fused_enn.launch_counts() == snap
