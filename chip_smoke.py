@@ -95,6 +95,10 @@ Phases (any failure raises and the script exits non-zero):
      sidecar, BASF rows past the gate in some GGNN step, and exactly one
      forward's launches (GGNN 10, AttGGNN 6, EMN 9) at every sampler round
      and every forward-only replay step, none in the gradient replays;
+     each step's replays and Adam replayed from captured graphs
+     (``rl/step_graphs.py``), and each job run once more on the eager
+     step with fine-tuning.log, convergence.log, the agent's weights and
+     Adam's moments and step equal;
   13b. numerics: the forward-only replay of 1,000 trajectories, kernel path
      against plain path per trajectory (f32 1e-3; bf16 the bar that
      ``probe_rl_numerics.py --device cpu`` read); the f32 sampler's
@@ -111,13 +115,17 @@ Phases (any failure raises and the script exits non-zero):
      GGNN job and 15e's QSAR-scored job are each run once more with every
      step so composed: fine-tuning.log, convergence.log and the agent's
      weights byte-equal;
-  13c. timings: a step split into its pieces (CUDA events at each piece's
-     end), the host seconds it waited for the scoring worker
-     (``scoring_wait``) and its wall, with its rollouts graphed and, one
-     step later, on the eager loop; the agent's rollout with the refresh
-     of its captured round (its weights moved in place), replayed and
-     eager; the device's busy
-     share over a profiled step, the gradient replay's time and peak
+  13c. the fine-tune step graphed and eager (``FineTuner(...,
+     _eager=True)``; the sampler's rounds graphed in both) in turns, four
+     steps each way: the prior's and the BASF's likelihoods bit for bit,
+     the loss, gradient leaves, weights, Adam's moments and step and the
+     rollouts' generators equal after every step; each step's pieces
+     (CUDA events at each piece's end) and wall both ways, with the
+     sampler's captures and refreshes and the fine-tune graphs' captures
+     and replays; memory allocated and reserved; the agent's rollout with
+     the refresh of its captured round, then replayed; the device's busy
+     share over a profiled step both ways; the fine-tune graphs' reserved
+     memory (under 2 GiB); the eager gradient replay's time and peak
      memory at ``rl_remat_segment`` 1 and 2;
   13d. the generate job with the two-phase sampler (n_samples=4000, phase 1
      capped at TWO_PHASE_ROUNDS rounds) on the fine-tune GGNN: launches 10
@@ -159,7 +167,8 @@ Phases (any failure raises and the script exits non-zero):
   15e. ``tools/train_qsar`` (logistic, on the card) on stand-in labels
      ("has a ring") of phase 7's SMILES, then one fine-tune step through
      ``main`` scored by that model with QED (10 launches a rollout round
-     and a forward-only replay step, none in the gradient replay);
+     and a forward-only replay step, none in the gradient replay), on the
+     graphed step, then again in sequence and on the eager step;
   16. multi-process jobs (``parallel/``), two ranks sharing the card over
      gloo (``GRAPHINVENT_DIST_BACKEND=gloo``: NCCL refuses two ranks on one
      card), each rank ``python3 chip_smoke.py --rank-job <dir> <report>``
@@ -1980,6 +1989,11 @@ def run_fine_tune(fused_enn, tag: str, ft_cfg, job: str):
     rounds = [r for r, _ in workflow.batch_stats]
     launches = check_launches(fused_enn, ft_cfg, f"{tag} fine-tune job",
                               sum(rounds) + sum(tuner.replay_steps))
+    graphs = tuner.graphs.counts() if tuner.graphs is not None else None
+    check(graphs is not None
+          and graphs["loglik_replays"] == sum(tuner.replay_steps)
+          and graphs["grad_replays"] == ft_cfg.epochs,
+          f"{tag}: the fine-tune job did not replay its graphs: {graphs}")
     peak = torch.cuda.max_memory_allocated() / 2**20
     start = tuner.start_step
     steps = list(range(start, start + ft_cfg.epochs))
@@ -2014,7 +2028,8 @@ def run_fine_tune(fused_enn, tag: str, ft_cfg, job: str):
         f"{sum(rounds)} rounds; replays of {tuner.replay_steps} steps; "
         f"{sum(launches.values())} kernel launches "
         f"({per_forward(ft_cfg)} a forward); BASF rows past the gate "
-        f"{tuner.basf_gated}; peak device memory {peak:.0f} MiB")
+        f"{tuner.basf_gated}; peak device memory {peak:.0f} MiB; graphs "
+        f"{graphs}")
     for s, times, wait in zip(steps, tuner.step_timings,
                               tuner.scoring_waits):
         log(f"      step {s}: " + ", ".join(
@@ -2035,40 +2050,82 @@ def sequential_step(tuner, step: int) -> float:
                        tuner.replay(tuner.basf, res_b))
 
 
-def sequential_twin(tag: str, ft_cfg, job: str, tuner) -> None:
-    """Runs the fine-tune job of ``ft_cfg`` once more in a fresh dir as
-    ``learning_phase`` runs it, each step from :func:`sequential_step`;
-    its fine-tuning.log, convergence.log and agent must equal the
-    overlapped job's in ``job`` byte for byte."""
+def twin_job(ft_cfg, job: str, suffix: str, step_fn, **kw):
+    """Runs the fine-tune job of ``ft_cfg`` once more in ``job + suffix``
+    as ``learning_phase`` runs it, each step from ``step_fn(tuner, step)``
+    on a ``FineTuner(..., **kw)``; -> (its dir, its fine-tuner)."""
     from graphinvent_tpu_torch.rl.workflow_rl import (
         FineTuner, find_pretrained,
     )
     from graphinvent_tpu_torch.utils.weights import load_checkpoint
     from graphinvent_tpu_torch.workflow import Workflow
-    twin = job + "_sequential"
+    twin = job + suffix
     os.makedirs(twin)
     run_cfg = ft_cfg.replace(job_dir=twin + "/")
     path, epoch = find_pretrained(run_cfg)
     wf = Workflow(run_cfg)
-    seq = FineTuner(wf, load_checkpoint(run_cfg, path).to(wf.device),
-                    epoch + 1)
-    seq.pre_evaluation()
+    tuner = FineTuner(wf, load_checkpoint(run_cfg, path).to(wf.device),
+                      epoch + 1, **kw)
+    tuner.pre_evaluation()
     for step in range(epoch + 1, epoch + 1 + run_cfg.epochs):
-        sequential_step(seq, step)
+        step_fn(tuner, step)
         if step % run_cfg.sample_every == 0:
-            seq.evaluate(step)
+            tuner.evaluate(step)
+    return twin, tuner
+
+
+def same_tuners(a, b) -> bool:
+    """The agents' weights, Adam's moments and step equal (``torch.equal``:
+    up to the sign of a zero)."""
+    sb = b.agent.state_dict()
+    return (a.adam.step == b.adam.step
+            and all(torch.equal(v, sb[k])
+                    for k, v in a.agent.state_dict().items())
+            and all(torch.equal(x, y) for x, y in zip(
+                a.adam.mu + a.adam.nu, b.adam.mu + b.adam.nu)))
+
+
+def sequential_twin(tag: str, ft_cfg, job: str, tuner) -> None:
+    """The job of ``ft_cfg`` once more with each step from
+    :func:`sequential_step`: its fine-tuning.log, convergence.log and
+    agent must equal the overlapped job's in ``job`` byte for byte."""
+    twin, seq = twin_job(ft_cfg, job, "_sequential", sequential_step)
     same_files(job, twin, ["fine-tuning.log", "convergence.log"],
                f"{tag}: overlapped vs sequential")
-    b = seq.agent.state_dict()
-    check(all(torch.equal(v, b[k]) for k, v in tuner.agent.state_dict()
-              .items()), f"{tag}: the overlapped job's agent differs from "
-          "the sequential composition's")
+    check(same_tuners(tuner, seq), f"{tag}: the overlapped job's agent "
+          "differs from the sequential composition's")
     waits = [round(w, 4) for w in tuner.scoring_waits]
     scoring = [round(t["scoring"], 4) for t in seq.step_timings]
     log(f"    {tag}: the same job with each step composed in sequence: "
         f"fine-tuning.log, convergence.log and the agent's weights "
         f"byte-equal; scoring_wait a step {waits} s overlapped, scoring "
         f"{scoring} s in sequence")
+
+
+def fmt_pieces(times: dict) -> str:
+    return ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+
+
+def eager_twin(tag: str, ft_cfg, job: str, tuner) -> None:
+    """The job of ``ft_cfg`` once more with the eager step
+    (``FineTuner(..., _eager=True)``): its fine-tuning.log,
+    convergence.log, agent weights and Adam's moments and step must equal
+    the graphed job's in ``job``; each step's pieces both ways."""
+    counts = tuner.graphs.counts()
+    twin, eager = twin_job(ft_cfg, job, "_eager", lambda t, s: t.step(s),
+                           _eager=True)
+    check(eager.graphs is None, f"{tag}: the eager twin has graphs")
+    same_files(job, twin, ["fine-tuning.log", "convergence.log"],
+               f"{tag}: graphed vs eager")
+    check(same_tuners(tuner, eager), f"{tag}: the graphed job's agent or "
+          "Adam's moments differ from the eager job's")
+    log(f"    {tag}: the same job on the eager step: fine-tuning.log, "
+        f"convergence.log, the agent's weights, Adam's moments and step "
+        f"equal; the graphed job's graphs {counts}")
+    for k, (g, e) in enumerate(zip(tuner.step_timings, eager.step_timings)):
+        log(f"      step {k + 1}, s: graphed {sum(g.values()):.3f} "
+            f"({fmt_pieces(g)}); eager {sum(e.values()):.3f} "
+            f"({fmt_pieces(e)})")
 
 
 def phase_fine_tune(fused_enn, cfg, models, root: str, data: dict,
@@ -2085,12 +2142,14 @@ def phase_fine_tune(fused_enn, cfg, models, root: str, data: dict,
     check(sum(workflow.fine_tuner.basf_gated) > 0,
           "GGNN: no BASF row passed the gate in any step")
     sequential_twin("GGNN", ggnn_cfg, ggnn_job, workflow.fine_tuner)
+    eager_twin("GGNN", ggnn_cfg, ggnn_job, workflow.fine_tuner)
     for name in ("AttGGNN", "EMN"):
-        _, out[name] = run_fine_tune(
-            fused_enn, name, fine_tune_cfg(models[name][0], data,
-                                           pretrained[name][0], epochs=1,
-                                           sample_every=1),
-            os.path.join(root, "fine_tune_" + name))
+        name_cfg = fine_tune_cfg(models[name][0], data, pretrained[name][0],
+                                 epochs=1, sample_every=1)
+        name_job = os.path.join(root, "fine_tune_" + name)
+        workflow, out[name] = run_fine_tune(fused_enn, name, name_cfg,
+                                            name_job)
+        eager_twin(name, name_cfg, name_job, workflow.fine_tuner)
     return out
 
 
@@ -2115,16 +2174,29 @@ def rl_gradients(cfg, model, batches, device, dtype) -> tuple:
                          for n, p in m.named_parameters()}
 
 
+def fresh_tuner(cfg, root: str, data: dict, pretrained: tuple, name: str,
+                **kw):
+    """A ``FineTuner(..., **kw)`` of the fine-tune GGNN at step 3 of a
+    3-step plan, in a new job dir ``name``."""
+    from graphinvent_tpu_torch.rl.workflow_rl import FineTuner
+    from graphinvent_tpu_torch.workflow import Workflow
+    job, epoch = pretrained
+    scratch = os.path.join(root, name)
+    os.makedirs(scratch)
+    ft_cfg = fine_tune_cfg(cfg, data, job, epochs=3, sample_every=100)
+    wf = Workflow(ft_cfg.replace(job_dir=scratch + "/"))
+    return FineTuner(wf, load_trained(cfg, job, "bfloat16", epoch)[1], 3,
+                     **kw)
+
+
 def phase_fine_tune_numerics(fused_enn, cfg, root: str, data: dict,
-                             pretrained: tuple) -> dict:
-    """-> the fine-tuner of the step checks, for the timings."""
+                             pretrained: tuple) -> None:
     from graphinvent_tpu_torch.rl.workflow_rl import (
-        ROLE_AGENT, ROLE_BASF, FineTuner, rl_generator,
+        ROLE_AGENT, ROLE_BASF, rl_generator,
     )
     from graphinvent_tpu_torch.sampling import GraphSampler
     from graphinvent_tpu_torch.sampling.replay import trajectory_loglik
     from graphinvent_tpu_torch.utils.synthetic import synthetic_graphs
-    from graphinvent_tpu_torch.workflow import Workflow
     log("[13b fine-tune numerics on the card]")
     dev = torch.device("cuda")
     job, epoch = pretrained
@@ -2229,10 +2301,7 @@ def phase_fine_tune_numerics(fused_enn, cfg, root: str, data: dict,
     ft_cfg = fine_tune_cfg(cfg, data, job, epochs=3, sample_every=100)
 
     def tuner_in(name: str):
-        scratch = os.path.join(root, name)
-        os.makedirs(scratch)
-        wf = Workflow(ft_cfg.replace(job_dir=scratch + "/"))
-        return FineTuner(wf, load_trained(cfg, job, "bfloat16", epoch)[1], 3)
+        return fresh_tuner(cfg, root, data, pretrained, name)
 
     tuner = tuner_in("fine_tune_step")
     before = {k: {n: v.clone() for n, v in getattr(tuner, k).state_dict()
@@ -2274,84 +2343,180 @@ def phase_fine_tune_numerics(fused_enn, cfg, root: str, data: dict,
         f"{seq.step_timings[-1]['scoring']:.4f} s")
     check(loss == seq_loss and same,
           "the overlapped step differs from the sequential composition")
-    return tuner
 
 
-def phase_fine_tune_timings(tuner) -> None:
-    from torch.autograd import DeviceType
+# 13c: the fine-tune steps run both ways; the first captures, the rest replay
+FT_TIMED_STEPS = (3, 4, 5, 6)
+GRAPHS_RESERVED_MIB = 2048   # the fine-tune graphs' reserved memory, at most
+
+
+def recorded_replays(tuner) -> list:
+    """Records the likelihoods of each of ``tuner``'s forward-only
+    replays in the returned list."""
+    seen, replay = [], tuner.replay
+
+    def recorded(model, res):
+        seen.append(replay(model, res))
+        return seen[-1]
+    tuner.replay = recorded
+    return seen
+
+
+def timed_step(tuner, step: int, lls: list, made: list) -> dict:
+    """Fine-tune step ``step`` with its wall (host clock between
+    synchronizes), pieces, loss, forward-only replays' likelihoods and the
+    rollouts' generators' states."""
+    n_ll, n_made = len(lls), len(made)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = tuner.step(step)
+    torch.cuda.synchronize()
+    return dict(wall=time.perf_counter() - t0, times=tuner.step_timings[-1],
+                loss=loss, lls=lls[n_ll:],
+                gens=[g.get_state() for g in made[n_made:]])
+
+
+def phase_fine_tune_timings(fused_enn, cfg, root: str, data: dict,
+                            pretrained: tuple) -> None:
+    import gc
+    from graphinvent_tpu_torch.rl import workflow_rl
     from graphinvent_tpu_torch.rl.workflow_rl import (
         ROLE_AGENT, ROLE_BASF, rl_loss,
     )
-    from graphinvent_tpu_torch.sampling import GraphSampler
-    log("[13c fine-tune step timings, bf16, B=1000]")
-    graphed = tuner.sampler
-    eager = GraphSampler(tuner.cfg, tuner.cfg.batch_size, device=tuner.device,
-                         _eager=True)
-    for step_no, way in ((4, "graphed"), (5, "eager")):
-        tuner.sampler = graphed if way == "graphed" else eager
-        before = graphed._graphs.captures, graphed._graphs.refreshes
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        t0 = time.time()
-        start.record()
-        tuner.step(step_no)
-        end.record()
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        times = tuner.step_timings[-1]
-        captured = graphed._graphs.captures - before[0]
-        refreshed = graphed._graphs.refreshes - before[1]
-        log(f"    one step, rollouts {way} ({captured} captures, {refreshed} "
-            "refreshes): "
-            f"{wall:.3f} s wall, {start.elapsed_time(end):.1f} ms "
-            "between CUDA events; " + ", ".join(
-                f"{k} {v:.3f} s" for k, v in times.items())
-            + f"; scoring_wait {tuner.scoring_waits[-1]:.3f} s")
-    tuner.sampler = graphed
-    # the agent's rollout after an Adam step (its weights moved in place:
-    # a refresh of its captured round), the same rollout replayed, and on
-    # the eager loop
+    log("[13c the fine-tune step graphed against eager (the step's "
+        "replays and Adam eager, the sampler's rounds graphed in both), "
+        "bf16, B=1000, in turns]")
+    graphed = fresh_tuner(cfg, root, data, pretrained, "fine_tune_graphed")
+    eager = fresh_tuner(cfg, root, data, pretrained, "fine_tune_eager",
+                        _eager=True)
+    check(graphed.graphs is not None and eager.graphs is None,
+          "13c: the fine-tuners' graphs")
+    rounds = graphed.sampler._graphs
+    lls = {id(t): recorded_replays(t) for t in (graphed, eager)}
+    made, real = [], workflow_rl.rl_generator
+
+    def recording(*args):
+        made.append(real(*args))
+        return made[-1]
+
+    workflow_rl.rl_generator = recording
+    peaks = {}
+    try:
+        for step in FT_TIMED_STEPS:
+            before = (rounds.captures, rounds.refreshes,
+                      graphed.graphs.counts())
+            out = {}
+            for way, tuner in (("graphed", graphed), ("eager", eager)):
+                if step == FT_TIMED_STEPS[-1]:
+                    torch.cuda.reset_peak_memory_stats()
+                out[way] = timed_step(tuner, step, lls[id(tuner)], made)
+                if step == FT_TIMED_STEPS[-1]:
+                    peaks[way] = (torch.cuda.max_memory_allocated() / 2**20,
+                                  torch.cuda.memory_allocated() / 2**20,
+                                  torch.cuda.memory_reserved() / 2**20)
+            g, e = out["graphed"], out["eager"]
+            check(len(g["lls"]) == len(e["lls"]) == 2 and all(
+                a.tobytes() == b.tobytes() for a, b in zip(g["lls"],
+                                                           e["lls"])),
+                  f"13c step {step}: the prior's or the BASF's likelihoods "
+                  "differ graphed and eager")
+            grads = [p.grad for p in eager.adam.params]
+            check(g["loss"] == e["loss"] and same_tuners(graphed, eager)
+                  and all(torch.equal(a, b) for a, b in zip(
+                      graphed.graphs.grad.grads(), grads))
+                  and len(g["gens"]) == len(e["gens"]) == 2
+                  and all(torch.equal(a, b) for a, b in zip(g["gens"],
+                                                            e["gens"])),
+                  f"13c step {step}: the graphed step differs from the "
+                  "eager one")
+            counts = graphed.graphs.counts()
+            moved = {k: v - before[2][k] for k, v in counts.items()}
+            caught = (rounds.captures - before[0],
+                      rounds.refreshes - before[1])
+            log(f"    step {step}: loss {g['loss']!r} both ways; lls, "
+                f"gradients, weights, moments, Adam's step, generators "
+                f"equal; graphed wall {g['wall']:.3f} s "
+                f"({fmt_pieces(g['times'])}; rounds {caught[0]} captures, "
+                f"{caught[1]} refreshes; fine-tune graphs {moved}); eager "
+                f"wall {e['wall']:.3f} s ({fmt_pieces(e['times'])}); replays of "
+                f"{graphed.replay_steps[-2:]} steps")
+    finally:
+        workflow_rl.rl_generator = real
+    log(f"    the last step's memory, MiB (max allocated / allocated after "
+        f"/ reserved): graphed {peaks['graphed'][0]:.1f} / "
+        f"{peaks['graphed'][1]:.1f} / {peaks['graphed'][2]:.1f}; eager "
+        f"{peaks['eager'][0]:.1f} / {peaks['eager'][1]:.1f} / "
+        f"{peaks['eager'][2]:.1f}")
+
+    # the agent's rollout after a step (its weights moved in place: a
+    # refresh of its captured round), then the same rollout replayed
     secs = {}
-    before = graphed._graphs.captures, graphed._graphs.refreshes
-    for tag, sampler in (("with its refresh", graphed), ("replayed", graphed),
-                         ("eager", eager), ("eager again", eager)):
-        tuner.sampler = sampler
+    before = rounds.captures, rounds.refreshes
+    for tag in ("with its refresh", "replayed"):
         torch.cuda.synchronize()
-        t0 = time.time()
-        res = tuner.rollout(tuner.agent, 6, ROLE_AGENT)
-        secs[tag] = time.time() - t0
-    tuner.sampler = graphed
-    log(f"    the agent's rollout after the step ({res.n_rounds} rounds), s: "
-        + ", ".join(f"{k} {v:.4f}" for k, v in secs.items())
+        t0 = time.perf_counter()
+        res = graphed.rollout(graphed.agent, 7, ROLE_AGENT)
+        secs[tag] = time.perf_counter() - t0
+    log(f"    the agent's rollout after the steps ({res.n_rounds} rounds), "
+        f"s: " + ", ".join(f"{k} {v:.4f}" for k, v in secs.items())
         + f"; the refresh's cost about "
         f"{secs['with its refresh'] - secs['replayed']:.4f} s ("
-        f"{graphed._graphs.captures - before[0]} captures, "
-        f"{graphed._graphs.refreshes - before[1]} refreshes)")
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        torch.cuda.synchronize()
-        t0 = time.time()
-        tuner.step(5)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    if kernels:
-        busy = sum(e.self_device_time_total for e in kernels) / 1e6
-        log(f"    profiled step: wall {wall:.3f} s, device busy {busy:.3f} s "
-            f"({100 * busy / wall:.1f}%), {len(kernels)} kernel names")
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
-            log(f"      {e.self_device_time_total / 1e3:9.3f} ms  "
-                f"{e.count:5d}x  {e.key[:70]}")
-    else:
-        log("    device busy share: not measured (no device events traced)")
+        f"{rounds.captures - before[0]} captures, "
+        f"{rounds.refreshes - before[1]} refreshes)")
 
-    # the gradient replay alone at rl_remat_segment 1 and 2
-    res = [tuner.rollout(m, 6, role) for m, role in
-           ((tuner.agent, ROLE_AGENT), (tuner.basf, ROLE_BASF))]
-    dev = tuner.device
+    from torch.autograd import DeviceType
+    cuda_only = [torch.profiler.ProfilerActivity.CUDA]
+    for way, tuner in (("graphed", graphed), ("eager", eager)):
+        # the busy share reads the device's kernels only: the eager step's
+        # many host ops are left out of its trace, which they slow
+        acts = cuda_only if way == "eager" else cuda_only + [
+            torch.profiler.ProfilerActivity.CPU]
+        with torch.profiler.profile(activities=acts) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tuner.step(FT_TIMED_STEPS[-1] + 1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        if not kernels:
+            log(f"    {way} profiled step: device busy share not measured "
+                "(no device events traced)")
+            continue
+        busy = sum(e.self_device_time_total for e in kernels) / 1e6
+        log(f"    {way} profiled step: wall {wall:.3f} s, device busy "
+            f"{busy:.3f} s ({100 * busy / wall:.1f}%), {len(kernels)} "
+            f"kernel names; pieces {fmt_pieces(tuner.step_timings[-1])}")
+        if way == "graphed":
+            for e in sorted(kernels,
+                            key=lambda e: -e.self_device_time_total)[:6]:
+                log(f"      {e.self_device_time_total / 1e3:9.3f} ms  "
+                    f"{e.count:5d}x  {e.key[:70]}")
+
+    # what the fine-tune graphs reserve: the process's reserved memory with
+    # them and without (the allocator's cache emptied each time)
+    counts = graphed.graphs.counts()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with_graphs = (torch.cuda.memory_allocated() / 2**20,
+                   torch.cuda.memory_reserved() / 2**20)
+    graphed.graphs = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    without = (torch.cuda.memory_allocated() / 2**20,
+               torch.cuda.memory_reserved() / 2**20)
+    held = with_graphs[1] - without[1]
+    log(f"    the fine-tune graphs ({counts}): reserved {held:.1f} MiB "
+        f"(allocated in them {with_graphs[0] - without[0]:.1f} MiB); the "
+        f"process reserves {with_graphs[1]:.1f} MiB with them, "
+        f"{without[1]:.1f} without (limit {GRAPHS_RESERVED_MIB} MiB)")
+    check(0 < held < GRAPHS_RESERVED_MIB,
+          f"the fine-tune graphs reserve {held:.1f} MiB")
+
+    # the eager gradient replay alone at rl_remat_segment 1 and 2
+    res = [eager.rollout(m, 6, role) for m, role in
+           ((eager.agent, ROLE_AGENT), (eager.basf, ROLE_BASF))]
+    dev = eager.device
 
     def batch(r):
         n = len(r.t_counts)
@@ -2361,26 +2526,26 @@ def phase_fine_tune_timings(tuner) -> None:
                 torch.ones(n, device=dev))
 
     for seg in (1, 2):
-        run_cfg = tuner.cfg.replace(rl_remat_segment=seg)
-        tuner.adam.zero_grad()
+        run_cfg = eager.cfg.replace(rl_remat_segment=seg)
+        eager.adam.zero_grad()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         marks[0].record()
-        loss = rl_loss(run_cfg, tuner.agent, batch(res[0]), batch(res[1]),
+        loss = rl_loss(run_cfg, eager.agent, batch(res[0]), batch(res[1]),
                        run_cfg.alpha)
         marks[1].record()
         loss.backward()
         marks[2].record()
         torch.cuda.synchronize()
         peak = (torch.cuda.max_memory_allocated() - base) / 2**20
-        log(f"    gradient replay, rl_remat_segment={seg}: forward "
+        log(f"    eager gradient replay, rl_remat_segment={seg}: forward "
             f"{marks[0].elapsed_time(marks[1]):.1f} ms, backward "
             f"{marks[1].elapsed_time(marks[2]):.1f} ms (CUDA events; replays "
             f"of {[int(r.t_counts.max()) for r in res]} steps), peak device "
             f"memory above the model {peak:.0f} MiB")
-    tuner.adam.zero_grad()
+    eager.adam.zero_grad()
 
 
 def phase_two_phase(fused_enn, cfg, root: str, data: dict,
@@ -3061,6 +3226,7 @@ def phase_qsar_fine_tune(fused_enn, cfg, root: str, data: dict,
     workflow, launches = run_fine_tune(fused_enn, "GGNN QSAR", ft_cfg,
                                        qsar_job)
     sequential_twin("GGNN QSAR", ft_cfg, qsar_job, workflow.fine_tuner)
+    eager_twin("GGNN QSAR", ft_cfg, qsar_job, workflow.fine_tuner)
     conv = read_convergence(workflow.cfg.job_dir)
     check(conv[0][4] > 0, f"the QSAR-scored step scored nothing: {conv}")
     log(f"    15e took {time.time() - t_start:.1f} s")
@@ -4067,9 +4233,13 @@ def phase_mesh_step(fused_enn, camp: dict, root: str) -> dict:
             for r in reports}
 
 
-def step_grads(adam) -> dict:
-    return {n: p.grad.detach().double().cpu()
-            for n, p in zip(adam.names, adam.params)}
+def step_grads(adam, graphs=None) -> dict:
+    """The last step's gradient leaves by name: the parameters' ``.grad``,
+    or those of ``graphs`` (a fine-tuner's, ``rl/step_graphs.py``) where
+    the step was replayed."""
+    grads = (graphs.grad.grads() if graphs is not None
+             else [p.grad for p in adam.params])
+    return {n: g.detach().double().cpu() for n, g in zip(adam.names, grads)}
 
 
 @contextlib.contextmanager
@@ -4080,7 +4250,8 @@ def first_rl_loss(out: dict):
     from graphinvent_tpu_torch.rl import workflow_rl
     plain = workflow_rl.rl_loss
 
-    def recording(cfg, agent, batch_a, batch_b, alpha, apply_fn=None):
+    def recording(cfg, agent, batch_a, batch_b, alpha, apply_fn=None,
+                  stop=None):
         if not out:
             out.update(
                 state={k: v.detach().cpu().clone()
@@ -4088,7 +4259,7 @@ def first_rl_loss(out: dict):
                 batches=[tuple(t.detach().cpu() for t in b)
                          for b in (batch_a, batch_b)],
                 alpha=float(alpha))
-        return plain(cfg, agent, batch_a, batch_b, alpha, apply_fn)
+        return plain(cfg, agent, batch_a, batch_b, alpha, apply_fn, stop)
 
     workflow_rl.rl_loss = recording
     try:
@@ -4312,8 +4483,8 @@ def phase_mesh_generate_fine_tune(fused_enn, cfg, root: str, data: dict,
     want, got = read_convergence(ft_one)[0], read_convergence(ft_mesh)[0]
     dl = abs(got[2] - want[2]) / abs(want[2])
     l2, mx, leaf = grad_errors(torch.load(os.path.join(
-        root, "mesh_ft_rank0.json.grads.pt")), step_grads(wf.fine_tuner.adam),
-        "17d")
+        root, "mesh_ft_rank0.json.grads.pt")),
+        step_grads(wf.fine_tuner.adam, wf.fine_tuner.graphs), "17d")
     for r in reports:
         rounds = sum(x for x, _ in r["batch_stats"])
         check(r["launches"] == per_forward(cfg) * (rounds
@@ -4651,9 +4822,10 @@ def main() -> None:
         by_job["fine-tune"] = fine_tune["GGNN"]
         for name in ("AttGGNN", "EMN"):
             model_jobs[name]["fine-tune"] = fine_tune[name]
-        tuner = phase_fine_tune_numerics(fused_enn, cfg, root, data,
-                                         pretrained["GGNN"])
-        phase_fine_tune_timings(tuner)
+        phase_fine_tune_numerics(fused_enn, cfg, root, data,
+                                 pretrained["GGNN"])
+        phase_fine_tune_timings(fused_enn, cfg, root, data,
+                                pretrained["GGNN"])
         by_job["two-phase generate"] = phase_two_phase(
             fused_enn, cfg, root, data, pretrained["GGNN"])
         phase_native(fused_enn, cfg, model, root, data, pretrained["GGNN"],

@@ -33,7 +33,11 @@ instead.  One worker keeps the analyzer's writes in order (the agent's
 first).  ``FineTuner.learn`` is the same step with the scoring in
 sequence, for callers that run the pieces themselves; both give the same
 bytes.  The rollouts and the two forward-only replays take the fused
-kernel; the gradient replay takes the plain path.
+kernel; the gradient replay takes the plain path.  On a card, in one
+process with no mesh, the forward-only replays and the gradient replay
+with Adam are replays of captured CUDA graphs (``rl/step_graphs.py``;
+``FineTuner(..., _eager=True)`` keeps the eager step), as the JAX package
+runs them as compiled programs.
 ``FineTuner.step_timings`` holds each piece's seconds per step: on a
 card, between CUDA events recorded where each piece ends and read once the
 step's loss is on the host, so the marks never stall the queue;
@@ -75,11 +79,15 @@ from graphinvent_tpu_torch.parallel.mesh import (
 )
 from graphinvent_tpu_torch.eval.analyzer import Analyzer
 from graphinvent_tpu_torch.eval.scoring import ScoringFunction
+from graphinvent_tpu_torch.rl.step_graphs import FineTuneGraphs
 from graphinvent_tpu_torch.sampling.generator import (
     STREAM_FINE_TUNE, SampleResult, seeded_generator,
 )
 from graphinvent_tpu_torch.sampling.replay import trajectory_loglik
 from graphinvent_tpu_torch.train.optim import Adam, onecycle_for_config
+from graphinvent_tpu_torch.train.step_graphs import (
+    keeps_eager_step, replays_steps,
+)
 from graphinvent_tpu_torch.utils.weights import (
     latest_checkpoint, load_checkpoint, save_checkpoint,
 )
@@ -107,21 +115,23 @@ def rl_generator(seed: int, step: int, role: int, device: torch.device
 
 def rl_loss(cfg: GraphInventConfig, agent: nn.Module, batch_a: Batch,
             batch_b: Batch, alpha: float,
-            apply_fn: Optional[Callable] = None) -> torch.Tensor:
+            apply_fn: Optional[Callable] = None,
+            stop: Optional[int] = None) -> torch.Tensor:
     """The combined loss (a scalar, differentiable in the agent's
     parameters).  ``batch_a`` / ``batch_b``: (actions (B, L), t_counts
     (B,), target (B,), mask (B,)) of the agent's and the BASF's rollout on
-    the agent's device; ``apply_fn`` as in ``trajectory_loglik``.  Two
-    B-row replays, not one 2B-row replay, as in the JAX package."""
+    the agent's device; ``apply_fn`` and ``stop`` (both replays' steps) as
+    in ``trajectory_loglik``.  Two B-row replays, not one 2B-row replay, as
+    in the JAX package."""
     actions_a, t_a, target_a, mask_a = batch_a
     actions_b, t_b, target_b, mask_b = batch_b
-    diff_a = (trajectory_loglik(cfg, agent, actions_a, t_a, apply_fn)
+    diff_a = (trajectory_loglik(cfg, agent, actions_a, t_a, apply_fn, stop)
               - target_a)
     loss_a = torch.mean(diff_a * diff_a * mask_a)
     # BASF term: the agent enters as "prior" (model_b); the gradient flows
     # through its log-likelihood of BASF's samples (Workflow.py:588-595)
     diff_b = target_b - trajectory_loglik(cfg, agent, actions_b, t_b,
-                                          apply_fn)
+                                          apply_fn, stop)
     loss_b = torch.mean(diff_b * diff_b * mask_b)
     return (1.0 - alpha) * loss_a + alpha * loss_b
 
@@ -247,7 +257,8 @@ class FineTuner:
     """The state of a fine-tune job: the agent and its Adam + OneCycle, the
     frozen prior, the frozen BASF and the best evaluation score so far."""
 
-    def __init__(self, workflow, agent: nn.Module, start_step: int) -> None:
+    def __init__(self, workflow, agent: nn.Module, start_step: int, *,
+                 _eager: bool = False) -> None:
         cfg: GraphInventConfig = workflow.cfg
         self.cfg = cfg
         self.workflow = workflow
@@ -271,6 +282,13 @@ class FineTuner:
         self.basf = frozen_copy(agent)      # "best agent so far"
         self.adam = Adam(agent)
         self.schedule = onecycle_for_config(cfg, 1)
+        # on the card, one process, no mesh: the replays and Adam are
+        # captured graphs (rl/step_graphs.py); ``_eager`` keeps the eager
+        # step there, for the checks that hold the two against each other
+        self.graphs = (FineTuneGraphs(cfg, agent, self.adam, self.device,
+                                      rl_loss)
+                       if not _eager and self.mesh is None
+                       and replays_steps(self.device) else None)
         self.best_avg_score = 0.0
         self.start_step = start_step
         # per step: seconds of each piece, the host seconds spent waiting
@@ -293,8 +311,11 @@ class FineTuner:
         # the forward steps this process runs: on a mesh, its rows'
         t_counts = (res.t_counts if self.mesh is None else
                     res.t_counts[data_rows(len(res.t_counts), self.mesh)])
-        self.replay_steps.append(
-            int(min(t_counts.max(), res.actions.shape[1])))
+        steps = int(min(t_counts.max(), res.actions.shape[1]))
+        self.replay_steps.append(steps)
+        if self.graphs is not None and not keeps_eager_step(model):
+            return self.graphs.loglik.loglik(self.cfg, model, res.actions,
+                                             res.t_counts, steps, self.device)
         return replay_loglik(self.cfg, model, res.actions, res.t_counts,
                              self.device, self.mesh)
 
@@ -419,18 +440,25 @@ class FineTuner:
         clock.mark("scoring")
 
         self.adam.zero_grad()
-        batch_a = self._batch(res_a, target_a, mask_a)
-        batch_b = self._batch(res_b, target_b, mask_b)
-        if self.mesh is None:
-            loss = rl_loss(cfg, self.agent, batch_a, batch_b, alpha)
-            clock.mark("grad_forward")
-            loss.backward()
-            clock.mark("grad_backward")
-        else:
-            loss = sharded_rl_backward(cfg, self.agent, self.adam, batch_a,
-                                       batch_b, alpha, self.mesh, clock)
         lr, beta1 = self.schedule(self.adam.step)
-        self.adam.update(lr, beta1)
+        if self.graphs is not None and not keeps_eager_step(self.agent):
+            loss = self.graphs.grad.learn(
+                (res_a.actions, res_a.t_counts, target_a, mask_a),
+                (res_b.actions, res_b.t_counts, target_b, mask_b),
+                lr, beta1, clock)
+        else:
+            batch_a = self._batch(res_a, target_a, mask_a)
+            batch_b = self._batch(res_b, target_b, mask_b)
+            if self.mesh is None:
+                loss = rl_loss(cfg, self.agent, batch_a, batch_b, alpha)
+                clock.mark("grad_forward")
+                loss.backward()
+                clock.mark("grad_backward")
+            else:
+                loss = sharded_rl_backward(cfg, self.agent, self.adam,
+                                           batch_a, batch_b, alpha,
+                                           self.mesh, clock)
+            self.adam.update(lr, beta1)
         clock.mark("adam")
 
         loss_value = loss.item()

@@ -20,6 +20,7 @@ captures again once it moved.
 from __future__ import annotations
 
 import contextlib
+import gc
 from typing import Callable, Iterator, List, Tuple
 
 import torch
@@ -76,13 +77,24 @@ def captured(graph: torch.cuda.CUDAGraph, pool: Tuple, fn: Callable):
     does not invalidate the capture.  A capture is per stream, so the
     kernels that autograd's device thread issues onto the captured stream
     (a backward's) are captured whatever the thread; where anything on
-    the stream was left out, the capture ends in an error."""
-    graph.capture_begin(*pool, capture_error_mode="thread_local")
+    the stream was left out, the capture ends in an error.
+
+    Python's cyclic garbage collector is off during the capture: a graph
+    that it frees there (one held in a reference cycle of an earlier
+    fine-tuner, say) destroys its executable graph, a call that the
+    capturing thread may not make, and the capture ends in an error."""
+    collecting = gc.isenabled()
+    gc.disable()
     try:
-        out = fn()
-    except BaseException:
-        with contextlib.suppress(RuntimeError):   # keep fn's error
-            graph.capture_end()
-        raise
-    graph.capture_end()
+        graph.capture_begin(*pool, capture_error_mode="thread_local")
+        try:
+            out = fn()
+        except BaseException:
+            with contextlib.suppress(RuntimeError):   # keep fn's error
+                graph.capture_end()
+            raise
+        graph.capture_end()
+    finally:
+        if collecting:
+            gc.enable()
     return out

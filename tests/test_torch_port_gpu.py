@@ -12,6 +12,10 @@ versions sum in another order and may round one layer's value to the
 neighbouring bf16 number).
 """
 
+import gc
+import itertools
+import weakref
+
 import numpy as np
 import pytest
 import torch
@@ -666,3 +670,136 @@ def test_a_train_capture_makes_an_earlier_sampler_graph_recapture(cuda):
     g2, e2 = both(0)
     assert g2.tobytes() == e2.tobytes() != g.tobytes()
     assert graphed._graphs.captures == 2 and fn.graphs.captures == 1
+
+
+# --------------------------------------------------------------------------
+# the fine-tune step from captured graphs (``rl/step_graphs.py``) against
+# the eager step: the prior's and the BASF's likelihoods bit for bit; the
+# loss, gradient leaves, weights and moments equal up to the sign of a zero
+# (``torch.equal``: the gradient replay runs inert steps to its bucket);
+# Adam's step and the rollouts' generators equal
+# --------------------------------------------------------------------------
+
+FT_ROWS = 256
+FT_SCORE = dict(score_components=("QED", "target_size=9"),
+                score_thresholds=(0.0, 0.0), score_type="continuous",
+                sigma=20.0, alpha=0.5, qsar_models={})
+
+
+def _fine_tuner(cuda, name, root, eager):
+    """A fine-tuner of ``_sampled_model(name)`` at FT_ROWS rows a batch."""
+    import os
+    from graphinvent_tpu_torch.rl.workflow_rl import FineTuner
+    from graphinvent_tpu_torch.workflow import Workflow
+    cfg, model = _sampled_model(cuda, name)
+    job = os.path.join(str(root), f"{name}_{'eager' if eager else 'graph'}")
+    os.makedirs(job)
+    cfg = cfg.replace(job_type="fine-tune", batch_size=FT_ROWS,
+                      job_dir=job + "/", dataset_dir=job + "/",
+                      tensorboard_dir="", **FT_SCORE)
+    return FineTuner(Workflow(cfg), model, 1, _eager=eager)
+
+
+def _fine_tune_steps(tuner, steps, monkeypatch):
+    """Runs the steps; -> what the two ways must share, and the launches
+    against the rounds and forward-only replay steps."""
+    from graphinvent_tpu_torch.rl import workflow_rl as prl
+    made, lls = [], []
+    real = prl.rl_generator
+
+    def recording(*args):
+        made.append(real(*args))
+        return made[-1]
+    monkeypatch.setattr(prl, "rl_generator", recording)
+    replay = tuner.replay
+
+    def recorded(model, res):
+        lls.append(replay(model, res))
+        return lls[-1]
+    tuner.replay = recorded
+    stats, replayed = len(tuner.workflow.batch_stats), len(tuner.replay_steps)
+    fused_enn.reset_launch_counts()
+    losses = [tuner.step(s) for s in steps]
+    monkeypatch.undo()
+    grads = (tuner.graphs.grad.grads() if tuner.graphs is not None
+             else [p.grad for p in tuner.adam.params])
+    rounds = sum(r for r, _ in tuner.workflow.batch_stats[stats:])
+    return dict(
+        losses=losses, lls=lls, step=tuner.adam.step,
+        grads=[g.detach().clone() for g in grads],
+        tensors=[t.detach().clone() for t in itertools.chain(
+            tuner.adam.params, tuner.adam.mu, tuner.adam.nu)],
+        gens=[g.get_state() for g in made],
+        launches=(sum(fused_enn.LAUNCHES.values()),
+                  rounds + sum(tuner.replay_steps[replayed:])))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", SAMPLED_MODELS)
+def test_graphed_fine_tune_step_matches_the_eager_step(cuda, name, tmp_path,
+                                                       monkeypatch):
+    runs = {}
+    for eager in (False, True):
+        tuner = _fine_tuner(cuda, name, tmp_path, eager)
+        runs[eager] = _fine_tune_steps(tuner, [1], monkeypatch)
+        if not eager:
+            counts = tuner.graphs.counts()
+            assert counts["loglik_captures"] == 2            # prior, BASF
+            assert counts["loglik_replays"] == sum(tuner.replay_steps)
+            assert (counts["grad_captures"], counts["grad_replays"]) == (1, 1)
+            assert all(p.grad is None for p in tuner.adam.params)
+    g, e = runs[False], runs[True]
+    assert len(g["lls"]) == 2
+    for a, b in zip(g["lls"], e["lls"]):
+        assert a.tobytes() == b.tobytes()
+    assert g["losses"] == e["losses"] and g["step"] == e["step"] == 1
+    for key in ("grads", "tensors", "gens"):
+        assert len(g[key]) == len(e[key])
+        assert all(torch.equal(a, b) for a, b in zip(g[key], e[key])), key
+    assert g["launches"][0] == e["launches"][0]
+    if name == "GGNN":
+        launches, forwards = g["launches"]
+        assert launches == 10 * forwards
+
+
+@pytest.mark.gpu
+def test_graphed_fine_tune_recaptures_a_new_basf_and_replays_allocate_nothing(
+        cuda, tmp_path, monkeypatch):
+    """A better evaluation makes a new BASF: its replay captures once, the
+    prior's does not; the agent's sampler round is refreshed, not captured
+    again.  Then a forward-only replay and a gradient replay with Adam of
+    buckets already captured allocate nothing on the card but the staged
+    scalars and the loss's copy."""
+    from graphinvent_tpu_torch.rl.workflow_rl import ROLE_AGENT, ROLE_BASF
+    tuner = _fine_tuner(cuda, "GGNN", tmp_path, False)
+    _fine_tune_steps(tuner, [1], monkeypatch)
+    old, rounds = weakref.ref(tuner.basf), tuner.sampler._graphs.captures
+    tuner.best_avg_score = -1.0
+    tuner.evaluate(1)
+    gc.collect()
+    assert old() is None                    # a new BASF; the old one gone
+    before = tuner.graphs.counts()
+    out = _fine_tune_steps(tuner, [2], monkeypatch)
+    after = tuner.graphs.counts()
+    assert after["loglik_captures"] == before["loglik_captures"] + 1
+    assert len(tuner.graphs.loglik.entries) == 2
+    assert tuner.sampler._graphs.captures == rounds + 1    # the new BASF's
+    assert out["launches"][0] == 10 * out["launches"][1]
+
+    res = [tuner.rollout(m, 3, r) for m, r in ((tuner.agent, ROLE_AGENT),
+                                               (tuner.basf, ROLE_BASF))]
+    batches = [(r.actions, r.t_counts, np.full(FT_ROWS, -20.0, np.float32),
+                np.ones(FT_ROWS, np.float32)) for r in res]
+    stop = int(res[0].t_counts.max())
+    for _ in range(2):
+        torch.cuda.synchronize(cuda)
+        base = torch.cuda.memory_allocated(cuda)
+        torch.cuda.reset_peak_memory_stats(cuda)
+        ll = tuner.graphs.loglik.loglik(tuner.cfg, tuner.prior,
+                                        res[0].actions, res[0].t_counts,
+                                        stop, cuda)
+        loss = tuner.graphs.grad.learn(*batches, 1e-5, 0.9)
+        torch.cuda.synchronize(cuda)
+        grew = torch.cuda.max_memory_allocated(cuda) - base
+    assert bool(np.isfinite(ll).all()) and bool(torch.isfinite(loss))
+    assert grew <= 2 * 512, grew
